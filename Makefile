@@ -1,8 +1,9 @@
 # radixhashjoin_tpu — convenience targets (reference parity: Makefile:1-14).
 PY ?= python
-SMALL ?= /root/reference/small
+DATA ?= .contest
+SCALE ?= 1
 
-.PHONY: all native test test-all test-slow run bench clean
+.PHONY: all native test test-all test-slow data run smoke bench clean
 
 all: native
 
@@ -13,10 +14,8 @@ native:
 test:
 	$(PY) -m pytest tests/ -q
 
-# the whole suite, including slow golden/SPMD tests (CI target).
-# Budget: ~9 min with a warm .jax_cache (fast ~3 min + slow ~6 min,
-# measured r3); the persistent XLA compilation cache keeps repeat runs
-# compile-free — wipe .jax_cache to measure a cold CI worker.
+# the whole suite, including the slow golden/SPMD tests; the persistent
+# compilation cache (.jax_cache) keeps repeat runs compile-free
 test-all:
 	$(PY) -m pytest tests/ -q -m ""
 
@@ -24,11 +23,20 @@ test-all:
 test-slow:
 	$(PY) -m pytest tests/ -q -m slow
 
-# the reference's golden benchmark contract: init+work on stdin, diff stdout
-run: native
-	cd $(dir $(SMALL)) && cat $(SMALL)/small.init $(SMALL)/small.work | \
-	  time $(PY) -m radixhashjoin_tpu | diff - $(SMALL)/small.result && \
+# a seeded contest workload (radixhashjoin_tpu/datagen.py) with oracle.py's
+# answers in $(DATA)/contest.result
+data:
+	$(PY) -m radixhashjoin_tpu.datagen --out $(DATA) --scale $(SCALE) --result
+
+# the reference's benchmark contract: init+work on stdin, diff stdout
+run: native data
+	cd $(DATA) && cat contest.init contest.work | \
+	  time $(PY) -m radixhashjoin_tpu | diff - contest.result && \
 	  echo "exact match"
+
+# the engine's main path on an NVIDIA GPU, every answer checked
+smoke:
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py

@@ -1,6 +1,6 @@
-"""radixhashjoin_tpu — a TPU-native vectorized query-execution engine.
+"""radixhashjoin_tpu — a vectorized query-execution engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 engine `pelekoudasq/radixHashJoin` (C++/pthreads, see /root/reference):
 an in-memory analytical executor for SPJ-aggregate workloads in the
 SIGMOD-2018-contest format (binary columnar uint64 relations; queries of the
@@ -20,7 +20,9 @@ Layout:
                (reference: structs.cpp:17-84)
   workload   — init/work stream parsing        (reference: Query.cpp:10-63, join.cpp:11-62)
   oracle     — NumPy executor of the validated semantics (test oracle)
-  ops        — device operators: filters, expand-join, aggregation, radix
+  datagen    — seeded contest-format workload generator
+  ops        — device operators: filters, expand-join, aggregation, radix,
+               factorized message passing
   models     — query executor + (stats-driven) planner
   parallel   — device mesh, distributed radix-exchange join
   runtime    — native (C++) loader/parser bindings, host pipeline
@@ -31,12 +33,18 @@ from __future__ import annotations
 
 import os
 
+import jax
+
 # Persistent XLA compilation cache: the engine compiles one program per
-# (operator, shape-bucket); cache makes cold starts cheap across processes.
-# Set RHJ_NO_JAX_CACHE=1 to disable (e.g. for compile-time benchmarking).
-if not os.environ.get("RHJ_NO_JAX_CACHE"):
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.join(os.path.dirname(__file__), os.pardir, ".jax_cache"))
+# (operator, shape-bucket); the cache makes cold starts cheap across
+# processes. It lives in $JAX_COMPILATION_CACHE_DIR when that is set, and
+# otherwise in the fixed `.jax_cache` of this checkout (a fixed path,
+# because the path is part of the cache key). Set through jax.config, so
+# it holds whether or not jax was imported before this package.
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
+jax.config.update("jax_compilation_cache_dir",
+                  os.environ.get("JAX_COMPILATION_CACHE_DIR") or CACHE_DIR)
 
 from .config import EngineConfig  # noqa: E402
 from .storage import Relation, Catalog, load_relation  # noqa: E402

@@ -16,7 +16,7 @@ from .models.engine import main
 def cli() -> None:
     p = argparse.ArgumentParser(
         prog="radixhashjoin_tpu",
-        description="TPU-native vectorized query engine "
+        description="vectorized query engine "
                     "(SIGMOD-2018-contest stream protocol on stdin)")
     p.add_argument("--backend", choices=["auto", "dense", "sort"],
                    default="auto", help="equi-join backend")

@@ -1,6 +1,6 @@
 """Engine facade: catalog + executor + workload runner.
 
-The TPU-native replacement for the reference's main() lifecycle
+The array-program replacement for the reference's main() lifecycle
 (join.cpp:11-62) and its 72-thread MainScheduler/JobScheduler runtime
 (MainScheduler.cpp, JobScheduler.cpp): relations are loaded once, queries
 execute as compiled array programs, and results print in input order.
@@ -80,13 +80,17 @@ class Engine:
     def run_batch_raw(self, batch: Sequence[Query]
                       ) -> List[Optional[List[int]]]:
         """One query batch, wave-parallel on device (models/batch.py) —
-        the TPU-native analog of the reference executing every query of a
+        the array analog of the reference executing every query of a
         batch concurrently on its thread pool (join.cpp:42-49). Returns
-        per-query sums (None = NULL line), unformatted."""
-        if (self.config.force_oracle or not self.config.batch_execution
-                or self.dist_executor is not None):
+        per-query sums (None = NULL line), unformatted. On a mesh the
+        factorizable queries run as d_ftree waves
+        (DistExecutor.run_batch_raw)."""
+        if self.config.force_oracle or not self.config.batch_execution:
             return [self.execute(q) for q in batch]
-        return self.batch_executor.run_batch([self._plan(q) for q in batch])
+        planned = [self._plan(q) for q in batch]
+        if self.dist_executor is not None:
+            return self.dist_executor.run_batch_raw(planned)
+        return self.batch_executor.run_batch(planned)
 
     def run_batch(self, batch: Sequence[Query]) -> List[str]:
         out = self.run_batch_raw(batch)

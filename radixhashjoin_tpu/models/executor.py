@@ -1,4 +1,4 @@
-"""TPU-native query executor: filters → ordered join pipeline with row-id
+"""Per-query device executor: filters → ordered join pipeline with row-id
 intermediate chaining → exact u64 SUM projections.
 
 Implements the validated semantic spec (SURVEY.md §9; oracle.py is the

@@ -1,4 +1,4 @@
-"""Device operators (JAX/XLA; Pallas kernels in ops/pallas_*).
+"""Device operators (JAX/XLA).
 
 Everything here works on *padded* arrays with an explicit live `count`
 (see utils/padding.py): XLA requires static shapes, so data-dependent sizes

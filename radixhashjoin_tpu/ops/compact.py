@@ -1,6 +1,6 @@
 """Stable stream compaction: keep masked elements, preserve order.
 
-TPU-native replacement for the reference's per-element `erase` loops over
+Array replacement for the reference's per-element `erase` loops over
 rowid vectors (Query.cpp:91-146): an exclusive-scan of the keep mask gives
 each survivor its destination, and a scatter with out-of-bounds drop writes
 them — one vectorized pass, no data-dependent shapes (output stays padded,

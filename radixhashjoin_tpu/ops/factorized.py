@@ -27,13 +27,12 @@ only remaining gather/scatter kernels are the message tables themselves,
 and a pristine (unfiltered, selection-free) leaf's B table comes
 precomputed from the catalog (DeviceCatalog.bincount_table).
 
-WAVE BATCHING (run_ftree_wave): on a remote-attached chip each
-non-fused scatter/gather kernel costs ~0.1 ms of scheduling, so a
-50-query batch at ~5 kernels/query pays ~25 ms regardless of data size.
-The wave runner executes MANY queries' trees in one program, merging
-every scatter and gather at the same tree LEVEL across queries into one
-segmented kernel (each edge owns a width-sized slice, offsets = running
-sums of the per-edge widths):
+WAVE BATCHING (run_ftree_wave): every non-fused scatter/gather kernel
+carries a fixed launch cost, so a 50-query batch at ~5 kernels/query
+pays it ~250 times regardless of data size. The wave runner executes
+MANY queries' trees in one program, merging every scatter and gather at
+the same tree LEVEL across queries into one segmented kernel (each edge
+owns a width-sized slice, offsets = running sums of the per-edge widths):
 kernel count drops from O(queries x edges) to O(tree height).
 
 Per-row weights alpha*beta are exact in int32 under host-checked caps
@@ -73,9 +72,10 @@ different relations share one compiled program.
                 (every filtered node, including slots outside the tree)
     root:       the tree's root node index (M-emptiness flag source);
                 -1 for specs without a joined component
-    projs:      tuple of (node,) — one per emitted partial, each a
-                (5, 2) weighted_partials fold (combine on host with
-                combine_weighted_partials)
+    projs:      tuple of (node,) — one per emitted partial (one 16-bit
+                plane of a projected column), each a (5, 3)
+                weighted_partials_segments fold (decode on host with
+                utils/limbs.py:combine_weighted_segments)
     trail:      None, or (node, born_of_join, width) — ONE selection sitting
                 AFTER the last join (consumes two cols). It filters the
                 final multiset (rides messages + sum weights) but not
@@ -130,6 +130,7 @@ from ..utils import limbs as _limbs
 from ..utils.limbs import (seg_chunk, weighted_partials_big,
                            weighted_partials_segments)
 from .filter import OP_EQ, OP_LT
+from .tables import scatter_add, scatter_add_window, table_gather
 
 # waves/gathers past this many rows switch to the HBM-bounded paths
 # (no-concat per-projection folds; lazy gathers)
@@ -140,7 +141,6 @@ class _Tree:
     """Per-spec traced state inside a wave."""
 
     __slots__ = ("spec", "edges", "flag_nodes", "root", "projs",
-                 "plane_bits",
                  "mask", "msg_mask", "tnode", "tnode_b", "tborn", "twidth",
                  "tsel_a", "tsel_b",
                  "pkey", "ckey", "pre", "children", "boolean",
@@ -255,11 +255,7 @@ def _parse_spec(spec, cols, vals, shard=None):
         # precomputed bincounts are catalog-domain long; the edge only
         # spans its own width (slicing drops nothing: codes <= width-1)
         t.pre.append(next_col()[:w] if pre_flag else None)
-    t.planes = [node_col_raw(i) for (i, *_b) in projs]
-    # static value-bit bounds per projection plane (spec-carried, from
-    # load-time stats) — lets sorted windows PACK planes into the sort
-    # key's low bits; 31 = unknown/unpackable
-    t.plane_bits = [(b[0] if b else 31) for (_i, *b) in projs]
+    t.planes = [node_col_raw(i) for (i,) in projs]
 
     t.children = {i: [] for i in range(k)}
     for ei, (p, _c, _pre, _nd, _w) in enumerate(edges):
@@ -339,10 +335,9 @@ class _Lazy:
     """An unmaterialized per-row weight over a HUGE node: the
     elementwise product of window-evaluable factors.
 
-    Materializing one message gather at 2**30 keys costs 8 GB of HBM
-    (the gather output plus the TPU backend's clamped-index temp); a
-    star join multiplies SEVERAL of them — the difference between a
-    1B-row fact table fitting one chip and not. Factors:
+    Materializing one message gather at 2**30 keys costs 4 GB of device
+    memory; a star join multiplies SEVERAL of them — the difference
+    between a 1B-row fact table fitting one chip and not. Factors:
 
       ("gather", table, keys, off, clamp) — table[keys + off], clamped
           to 0/1 for boolean trees; the offset into the level's
@@ -366,38 +361,24 @@ class _Lazy:
         self.factors = list(factors)
 
     @classmethod
-    def gather(cls, table, keys, off, clamp, kbits=31):
-        # kbits: static bit bound of the key values (the edge width),
-        # consumed by the sorted-window packer
+    def gather(cls, table, keys, off, clamp):
         return cls(keys.shape[0],
-                   [("gather", table, keys, np.int32(off), bool(clamp),
-                     int(kbits))])
+                   [("gather", table, keys, np.int32(off), bool(clamp))])
 
     def with_mask(self, bvec):
         return (self if bvec is None
                 else _Lazy(self.n, self.factors + [("mask", bvec)]))
 
     def _parts(self, start, size, cache=None):
-        sorted_ids = (cache or {}).get("sorted_ids", ())
         for f in self.factors:
             if f[0] == "gather":
-                _tag, table, keys, off, clamp = f[:5]
+                _tag, table, keys, off, clamp = f
                 k = _slice_cached(keys, start, size, cache)
                 ck = ("g", id(table), id(keys), int(off), clamp)
                 if cache is not None and ck in cache:
                     yield cache[ck], clamp
                     continue
-                if id(keys) in sorted_ids:
-                    # the window was sorted by THIS key column
-                    # (_fused_node_pass wsort): the hier gather reads
-                    # sub_width-wide table windows + blocked one-hot MXU
-                    # lookups — 339-391 M elem/s vs the engine's 116 M
-                    # at 2^20 bins (readback-forced, EVIDENCE_r05);
-                    # adding the offset preserves sortedness
-                    from .tables import table_gather_hier
-                    g = table_gather_hier(table, k + off)
-                else:
-                    g = table.at[k + off].get(mode="promise_in_bounds")
+                g = table_gather(table, k + off)
                 g = (g > 0) if clamp else g
                 if cache is not None:
                     cache[ck] = g
@@ -481,8 +462,7 @@ def _lazy_any_positive(lz: _Lazy, mask, axis=None):
     return jax.lax.fori_loop(0, nw, body, _vary(jnp.array(False), axis))
 
 
-def _scatter_add_big(width, key, off, weight, mask, sent, axis=None,
-                     impl="xla"):
+def _scatter_add_big(width, key, off, weight, mask, sent, axis=None):
     """zeros(width).at[key + off (masked -> sent)].add(weight) for a
     HUGE key vector, window by window: the scatter's full-length
     broadcast-update / index-select temps (2x 4 GB at 2**30 rows) and
@@ -491,7 +471,6 @@ def _scatter_add_big(width, key, off, weight, mask, sent, axis=None,
     idempotent, so the ragged tail re-scatters the LAST w_rows with the
     already-covered head masked to zero weight (live_from), unlike the
     idempotent rewrite the fold/any loops use."""
-    from .tables import scatter_add_window
     n = key.shape[0]
     _win_guard(n)
     w_rows = _win_rows()
@@ -518,149 +497,26 @@ def _scatter_add_big(width, key, off, weight, mask, sent, axis=None,
 
     def body(i, acc):
         k, w = win(i * w_rows, w_rows)
-        return scatter_add_window(acc, k, w, impl)
+        return scatter_add_window(acc, k, w)
     acc = jax.lax.fori_loop(0, n_full, body,
                             _vary(jnp.zeros(width, jnp.int32), axis))
     if n_full * w_rows < n:
         k, w = win(np.int32(n - w_rows), w_rows,
                    live_from=np.int32(n_full * w_rows))
-        acc = scatter_add_window(acc, k, w, impl)
+        acc = scatter_add_window(acc, k, w)
     return acc
 
 
-def _collect_pass_arrays(scatters, folds):
-    """Ordered {id: array} of every window-sliced operand of a fused
-    pass: scatter keys/weights/masks, fold planes, and the arrays
-    inside every lazy factor. These are exactly the arrays a sorted
-    window must carry through its permutation."""
-    arrs = {}
-
-    def add(a):
-        if a is not None and id(a) not in arrs:
-            arrs[id(a)] = a
-
-    def add_lazy(w):
-        if isinstance(w, _Lazy):
-            for f in w.factors:
-                add(f[2] if f[0] == "gather" else f[1])
-        elif w is not None:
-            add(w)
-
-    for (_w, key, _off, weight, mask, _sent) in scatters:
-        add(key)
-        add_lazy(weight)
-        add(mask)
-    for (plane, lz, _pb) in folds:
-        add(plane)
-        add_lazy(lz)
-    return arrs
-
-
-def _pick_primary(scatters, folds):
-    """id of the key column consumed by the most scatters + lazy
-    gathers of this pass — the column whose sort order pays the most."""
-    cnt: dict = {}
-    for (_w, key, _off, weight, _m, _s) in scatters:
-        cnt[id(key)] = cnt.get(id(key), 0) + 1
-        if isinstance(weight, _Lazy):
-            for f in weight.factors:
-                if f[0] == "gather":
-                    cnt[id(f[2])] = cnt.get(id(f[2]), 0) + 1
-    for (_plane, lz, _pb) in folds:
-        for f in lz.factors:
-            if f[0] == "gather":
-                cnt[id(f[2])] = cnt.get(id(f[2]), 0) + 1
-    if not cnt:
-        return None
-    return max(cnt.items(), key=lambda kv: kv[1])[0]
-
-
-def _pass_bits(scatters, folds, arrs):
-    """Static value-bit bounds per operand array of a fused pass:
-    scatter keys are bounded by their table widths, gather-factor keys
-    by their edge widths (_Lazy.gather kbits), planes by spec-carried
-    load-time stats, boolean masks by 1; uint16 dtype bounds anything
-    else at 16. 31 = unknown (carried raw by the packer — negative or
-    unbounded values must never enter a packed word)."""
-    bits = {}
-
-    def note(a, b):
-        bits[id(a)] = min(bits.get(id(a), 31), b)
-
-    def note_lazy(w):
-        if isinstance(w, _Lazy):
-            for f in w.factors:
-                if f[0] == "gather":
-                    note(f[2], f[5] if len(f) > 5 else 31)
-                elif f[0] == "mask":
-                    note(f[1], 1)
-    for (width, key, _off, weight, mask, _sent) in scatters:
-        note(key, (width - 1).bit_length())
-        note_lazy(weight)
-        if mask is not None:
-            note(mask, 1)
-    for (_plane, lz, pb) in folds:
-        note(_plane, pb)
-        note_lazy(lz)
-    for i, a in arrs.items():
-        if a.dtype == jnp.bool_:
-            bits[i] = min(bits.get(i, 31), 1)
-        elif a.dtype == jnp.uint16:
-            bits[i] = min(bits.get(i, 31), 16)
-    return bits
-
-
-def _plan_packing(primary, arrs, bits, with_live):
-    """First-fit-decreasing layout of a sorted window's operands into
-    int32 words: word 0 carries the primary key in its HIGH bits (so
-    sorting by word 0 sorts by key; low-bit payload ties are free to
-    break arbitrarily — multiset consumers), remaining known-bit
-    payloads fill word 0's low bits then further words; unknown-bit
-    operands ride the sort raw. Returns (layout, raw_ids, n_ops) or
-    None when packing would not shrink the sort's operand count.
-    layout: list of words, each a list of (payload_id, shift, bits);
-    word 0's last entry is ("_key", shift, kbits); live (the ragged
-    tail's already-covered mask) packs as pseudo-id "_live" (1 bit)."""
-    pb = bits.get(primary, 31)
-    if pb >= 31:
-        return None
-    payloads = [(i, bits.get(i, 31)) for i in arrs if i != primary]
-    if with_live:
-        payloads.append(("_live", 1))
-    known = sorted([p for p in payloads if p[1] < 31],
-                   key=lambda x: -x[1])
-    raw = [p[0] for p in payloads if p[1] >= 31]
-    # word 0 starts with the key at its top; payloads stack downward
-    words = [[("_key", 31 - pb, pb)]]
-    space = [31 - pb]
-    for (i, b) in known:
-        for w in range(len(words)):
-            if space[w] >= b:
-                words[w].append((i, space[w] - b, b))
-                space[w] -= b
-                break
-        else:
-            words.append([(i, 31 - b, b)])
-            space.append(31 - b)
-    n_ops = len(words) + len(raw)
-    plain_ops = 1 + len(payloads)
-    if n_ops >= plain_ops:
-        return None
-    return words, raw, n_ops
-
-
-def _fused_node_pass(n, scatters, folds, flag_idx, axis, impl="xla",
-                     wsort=False):
+def _fused_node_pass(n, scatters, folds, flag_idx, axis):
     """ONE window loop over a huge node serving every consumer at once:
     message-table scatter builds (the down-pass A slices), exact
     projection folds, and the root NULL flag. Each window slices the
     operands and evaluates every shared lazy gather factor ONCE
     (`_Lazy.window(cache=...)`) — on a star fact node the A build for
     edge 1 gathers edge 2's message table and vice versa, and the
-    projection fold gathers BOTH: unfused that is four full passes
-    through the v5e gather engine (~9 ns/element — ~10 s each at 2**30
-    rows), fused it is two. The TPU-native analog of the reference
-    probing all partitions of a bucket in one sweep
+    projection fold gathers BOTH: unfused that is four full gather passes
+    over the fact table, fused it is two. The array analog of the
+    reference probing all partitions of a bucket in one sweep
     (/root/reference/structs.cpp:111-134 + intermediate.cpp:146-183).
 
     scatters: [(width, key, off, weight, mask, sent)] — semantics of
@@ -670,139 +526,26 @@ def _fused_node_pass(n, scatters, folds, flag_idx, axis, impl="xla",
         folds (decode with combine_weighted_segments).
     flag_idx: folds index whose any(weight > 0) is also wanted (the
         root emptiness bit), or None.
-    wsort: sort every window ONCE by the pass's most-consumed key
-        column, carrying every other operand slice through the same
-        permutation (folds/scatters/flags are multiset ops — window
-        order is free). Consumers then read permuted slices
-        transparently through the window cache, and the primary key's
-        gathers/scatters run the presorted hier kernels instead of the
-        fixed-function engines: 339 M elem/s gathers and 295 M
-        updates/s builds vs the engines' 116/150 M, bought by one
-        ~363 M rows/s bit-packed carrying sort (readback-forced
-        timings, EVIDENCE_r05; end to end the same-session A/B at
-        2^29 zipf measured 13.83 -> 4.72 s). The r4 negative
-        (per-window hier at 16.7 -> 23.2 s) paid one sort per SCATTER;
-        this pays one per WINDOW for every consumer. Single-chip only
-        (axis None): distributed shards keep engine order.
+    axis: the mesh axis under shard_map (every window is a slice of this
+        chip's shard; the caller psums the returned tables), or None.
     Returns ([A_i], [fold_i], anyp_or_None). Exactness: full windows
     are disjoint; the ragged tail re-runs the LAST w_rows with rows
     already covered masked to zero weight (scatter adds zero, fold
-    channels zero via live_from — carried through the permutation as a
-    sort operand under wsort, OR unaffected) — the same discipline
-    as _scatter_add_big / weighted_partials_big, here sharing one loop.
+    channels zero via live_from) — the same discipline as
+    _scatter_add_big / weighted_partials_big, here sharing one loop.
     """
-    from .tables import MXU_SCATTER_MAX_BINS, scatter_add_window
     _win_guard(n)
-    if wsort is True:
-        wsort = "on"
-    elif not wsort:
-        wsort = "off"
-    # sorted windows work under shard_map too: every window is a
-    # slice of THIS chip's shard, so the sort is collective-free and
-    # the psum'd accs are unaffected (multiset ops)
-    primary = (_pick_primary(scatters, folds)
-               if wsort != "off" else None)
-    arrs = _collect_pass_arrays(scatters, folds) if primary is not None \
-        else None
-    if primary is not None and wsort == "mono" and len(arrs) > 2:
-        # the "auto" policy: engage only the measured-WIN class. A
-        # 2-operand pass (one key + one plane: the zipf shape) measured
-        # 13.83 -> 4.72 s; a 3-operand pass (the star: two keys + a
-        # plane) measured 38.93 -> 40.68 s same-session — only the
-        # primary key's legs improve while every leg pays the sort and
-        # the quartered window. "on" forces sorted windows everywhere.
-        primary = arrs = None
-    bits = (_pass_bits(scatters, folds, arrs) if primary is not None
-            else None)
-
     chunk = seg_chunk(n, 1) if folds else 1
-    base_rows = _win_rows()
-    if primary is not None and len(arrs) > 2:
-        # sorted windows add O(window x operands) temps (sort in/out,
-        # unpacked slices, and the hier kernels' block tensors — XLA
-        # materializes multi-hundred-MB slabs for the batched one-hot
-        # matmuls): a 3+-operand pass (the 1B star: key1 + key2 +
-        # plane over 10 GB of resident args) OOMed a 16 GB v5e at
-        # 2^26-row windows AND at 2^25 — quarter them. The 2-operand
-        # zipf pass keeps full windows (measured 9.45 s at 2^30);
-        # sort amortization only loses the log2 factor of two
-        # halvings.
-        base_rows //= 4
-    w_rows = max(base_rows, chunk)
+    w_rows = max(_win_rows(), chunk)
     n_full = n // w_rows
     m = (n_full * w_rows) // chunk if folds else 0
-
-    def scat_impl(key, width, mask):
-        # primary-key scatters run the presorted hier build; masked
-        # ones keep their sorted order because eval_win zeroes the
-        # WEIGHT instead of rewriting masked keys to the sentinel
-        del mask
-        if primary is not None and id(key) == primary \
-                and width > MXU_SCATTER_MAX_BINS:
-            return "hier_presorted"
-        return impl
 
     def eval_win(start, size, live_rel=None):
         cache = {}
         idx = (None if live_rel is None
                else jax.lax.broadcasted_iota(jnp.int32, (size,), 0))
-        live_s = None
-        if primary is not None:
-            live = (idx >= live_rel) if live_rel is not None else None
-            sl = {i: jax.lax.dynamic_slice(arrs[i], (start,), (size,))
-                  for i in arrs}
-            pk = _plan_packing(primary, arrs, bits, live is not None)
-            if pk is None:
-                order = [primary] + [i for i in arrs if i != primary]
-                ops = [sl[i] for i in order]
-                if live is not None:
-                    ops.append(live)
-                so = jax.lax.sort(tuple(ops), num_keys=1)
-                for i, s in zip(order, so):
-                    cache[("s", i)] = s
-                if live is not None:
-                    live_s = so[len(order)]
-            else:
-                # bit-packed sort: known-bit payloads ride the key
-                # word's low bits (and further words), shrinking the
-                # carrying sort toward the 1-operand rate; values are
-                # nonnegative by the bit bounds' construction
-                words, raw, _n = pk
-
-                def as32(i):
-                    a = (live if i == "_live"
-                         else sl[primary] if i == "_key" else sl[i])
-                    return a.astype(jnp.int32)
-
-                packed = []
-                for wlist in words:
-                    wv = None
-                    for (i, sh, _b) in wlist:
-                        v = as32(i) << sh
-                        wv = v if wv is None else wv | v
-                    packed.append(wv)
-                so = jax.lax.sort(
-                    tuple(packed + [sl[i] for i in raw]), num_keys=1)
-                for wi, wlist in enumerate(words):
-                    wv = so[wi]
-                    for (i, sh, b) in wlist:
-                        v = (wv >> sh) & ((1 << b) - 1)
-                        if i == "_key":
-                            cache[("s", primary)] = v
-                        elif i == "_live":
-                            live_s = v != 0
-                        else:
-                            a = arrs[i]
-                            if a.dtype == jnp.bool_:
-                                v = v != 0
-                            elif a.dtype != jnp.int32:
-                                v = v.astype(a.dtype)
-                            cache[("s", i)] = v
-                for i, s in zip(raw, so[len(words):]):
-                    cache[("s", i)] = s
-            cache["sorted_ids"] = {primary}
         sc = []
-        for (width, key, off, weight, mask, sent) in scatters:
+        for (_width, key, off, weight, mask, sent) in scatters:
             k = _slice_cached(key, start, size, cache) + off
             if isinstance(weight, _Lazy):
                 w = weight.window(start, size, cache)
@@ -812,46 +555,28 @@ def _fused_node_pass(n, scatters, folds, flag_idx, axis, impl="xla",
                 w = _slice_cached(weight, start, size, cache)
             if mask is not None:
                 mk = _slice_cached(mask, start, size, cache)
-                if primary is not None and id(key) == primary:
-                    # the window is sorted by THIS key: zeroing the
-                    # WEIGHT alone preserves both the scatter's value
-                    # (adding 0) and the sorted order the presorted
-                    # hier build relies on — key codes are always
-                    # in-range (< width by the planner's construction;
-                    # shard pads hold zeros), so the sentinel rewrite
-                    # is unnecessary here
-                    w = jnp.where(mk, w, 0)
-                else:
-                    k = jnp.where(mk, k, sent)
-                    w = jnp.where(mk, w, 0)
+                k = jnp.where(mk, k, sent)
+                w = jnp.where(mk, w, 0)
             if live_rel is not None:
-                w = jnp.where(live_s if live_s is not None
-                              else idx >= live_rel, w, 0)
+                w = jnp.where(idx >= live_rel, w, 0)
             sc.append((k, w))
         fc, anyp = [], None
-        for fi, (plane, lz, _pb) in enumerate(folds):
+        for fi, (plane, lz) in enumerate(folds):
             c = lz.window(start, size, cache)
-            if live_s is not None:
-                # row positions permuted: the tail's already-covered
-                # mask rode the sort as an operand
-                c = jnp.where(live_s, c, 0)
             if flag_idx == fi:
-                cp = c if (live_rel is None or live_s is not None) \
+                cp = c if live_rel is None \
                     else jnp.where(idx >= live_rel, c, 0)
                 anyp = jnp.any(cp > 0)
             v = _slice_cached(plane, start, size, cache)
-            fc.append(_limbs._channel_sums(
-                v, c, chunk,
-                live_from=None if live_s is not None else live_rel))
+            fc.append(_limbs._channel_sums(v, c, chunk, live_from=live_rel))
         return sc, fc, anyp
 
     def body(i, carry):
         accA, accF, flg = carry
         start = i * w_rows
         sc, fc, ap = eval_win(start, w_rows)
-        accA = tuple(scatter_add_window(a, k, w,
-                                        scat_impl(s[1], s[0], s[4]))
-                     for a, (k, w), s in zip(accA, sc, scatters))
+        accA = tuple(scatter_add_window(a, k, w)
+                     for a, (k, w) in zip(accA, sc))
         accF = tuple(jax.lax.dynamic_update_slice(a, cols,
                                                   (0, start // chunk))
                      for a, cols in zip(accF, fc))
@@ -869,9 +594,8 @@ def _fused_node_pass(n, scatters, folds, flag_idx, axis, impl="xla",
         live_rel = np.int32(n_full * w_rows - (n - w_rows))
         sc, fc, ap = eval_win(np.int32(n - w_rows), w_rows,
                               live_rel=live_rel)
-        accA = tuple(scatter_add_window(a, k, w,
-                                        scat_impl(s[1], s[0], s[4]))
-                     for a, (k, w), s in zip(accA, sc, scatters))
+        accA = tuple(scatter_add_window(a, k, w)
+                     for a, (k, w) in zip(accA, sc))
         chs = [jnp.concatenate([a, cols], axis=1)
                for a, cols in zip(chs, fc)]
         if ap is not None:
@@ -896,8 +620,7 @@ def _none_anywhere(x, axis):
     return jax.lax.psum(a.astype(jnp.int32), axis) == 0
 
 
-def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
-                   scatter="xla", gather="xla", wsort=False):
+def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None):
     """Execute MANY factorized trees in one traced program, batching all
     same-level message scatters/gathers across trees into single
     segmented kernels (per-edge table widths, offsets = running sums).
@@ -906,19 +629,14 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
     operands back to back. Returns (flags, partials) flat, in spec order
     (within a spec: flag_nodes flags, then the M/trailing flag).
 
-    scatter/gather: message-table kernel implementations
-    (ops/tables.py): "xla" | "sorted" | "onehot" | "auto" — auto picks
-    by backend, table width, and row count from committed measurements.
-
     Distributed mode (inside shard_map): `axis` names the mesh axis and
     `shards` gives per-spec (slicer, valid) row-sharding hooks
     (_parse_spec). Each chip scatters only ITS rows into the message
-    tables; one psum per level makes them global — the TPU-native analog
+    tables; one psum per level makes them global — the array analog
     of the reference's per-chunk histogram merge
     (/root/reference/structs.cpp:168-173) — and all gathers stay local.
     Flags reduce globally; the returned partials are per-shard (the
     caller psums the stack)."""
-    from .tables import scatter_table, table_gather
     trees = []
     ci = vi = 0
     for qi, (spec, nc, nv) in enumerate(wspecs):
@@ -971,14 +689,14 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
                     idxs.append(key + off)
                     ws.append(jnp.ones(key.shape[0], jnp.int32)
                               if w is None else w)
-            B = scatter_table(_concat(idxs), _concat(ws), t_sc, scatter)
+            B = scatter_add(jnp.zeros(t_sc, jnp.int32), _concat(idxs),
+                            _concat(ws))
             if axis is not None:
                 B = jax.lax.psum(B, axis)     # local scatters -> global
             parts.append(B)
         # huge-CHILD edges group by (tree, child): one fused window
         # pass per node serves every edge's B build (shared operand
-        # slices + under wsort one carrying sort per window feeding the
-        # presorted hier build)
+        # slices)
         up_groups: dict = {}
         for (t, ei) in bg:
             up_groups.setdefault((id(t), t.edges[ei][1]), (t, []))[1]\
@@ -991,8 +709,7 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
                 scats.append((w, t.ckey[ei], np.int32(0), t.beta[c],
                               t.msg_mask[c], np.int32(w)))
             B_list, _f, _a = _fused_node_pass(
-                t.ckey[eis[0]].shape[0], scats, [], None, axis,
-                impl=scatter, wsort=wsort)
+                t.ckey[eis[0]].shape[0], scats, [], None, axis)
             for ei, Bb in zip(eis, B_list):
                 if axis is not None:
                     Bb = jax.lax.psum(Bb, axis)
@@ -1007,14 +724,12 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
             if t.pkey[ei].shape[0] > _BIG_WAVE_ROWS:
                 # huge PARENT: defer the gather; boolean trees clamp
                 # per window inside the lazy factor
-                kb = (t.edges[ei][4] - 1).bit_length()
                 resolved.append((t, ei, _Lazy.gather(mega, t.pkey[ei],
-                                                     off, t.boolean,
-                                                     kbits=kb)))
+                                                     off, t.boolean)))
                 continue
             gks.append(t.pkey[ei] + np.int32(off))
             meta.append((t, ei, t.pkey[ei].shape[0]))
-        g = table_gather(mega, _concat(gks), gather) if gks else None
+        g = table_gather(mega, _concat(gks)) if gks else None
         o = 0
         for (t, ei, n) in meta:
             cv = g[o:o + n]
@@ -1074,7 +789,8 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
                     idxs.append(key + off)
                     ws.append(jnp.ones(key.shape[0], jnp.int32)
                               if w is None else w)
-            Ab = scatter_table(_concat(idxs), _concat(ws), t_sm, scatter)
+            Ab = scatter_add(jnp.zeros(t_sm, jnp.int32), _concat(idxs),
+                             _concat(ws))
             if axis is not None:
                 Ab = jax.lax.psum(Ab, axis)
             parts.append(Ab)
@@ -1097,7 +813,7 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
                               down_weight(t, ei), t.msg_mask[p],
                               np.int32(w_edge)))
             folds, fold_pi, flag_idx = [], [], None
-            for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
+            for pi, ((i,), plane) in enumerate(zip(t.projs, t.planes)):
                 if i != p or pi in t.done_folds:
                     continue
                 m_ = _lazy_mul(t.beta[i], t.alpha[i])
@@ -1106,12 +822,10 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
                 if (i == t.root and t.tnode is None and flag_idx is None
                         and t.msg_mask[i] is t.mask[i]):
                     flag_idx = len(folds)
-                folds.append((plane, m_.with_mask(t.msg_mask[i]),
-                              t.plane_bits[pi]))
+                folds.append((plane, m_.with_mask(t.msg_mask[i])))
                 fold_pi.append(pi)
             A_list, fold_list, anyp = _fused_node_pass(
-                n_node, scats, folds, flag_idx, axis, impl=scatter,
-                wsort=wsort)
+                n_node, scats, folds, flag_idx, axis)
             for ei, Ah in zip(eis, A_list):
                 if axis is not None:
                     Ah = jax.lax.psum(Ah, axis)
@@ -1127,12 +841,11 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
             off = offs[(id(t), ei)]
             if t.ckey[ei].shape[0] > _BIG_WAVE_ROWS:
                 t.alpha[t.edges[ei][1]] = _Lazy.gather(
-                    A, t.ckey[ei], off, t.boolean,
-                    kbits=(t.edges[ei][4] - 1).bit_length())
+                    A, t.ckey[ei], off, t.boolean)
                 continue
             gks.append(t.ckey[ei] + np.int32(off))
             meta.append((t, ei, t.ckey[ei].shape[0]))
-        g = table_gather(A, _concat(gks), gather) if gks else None
+        g = table_gather(A, _concat(gks)) if gks else None
         o = 0
         for (t, ei, n) in meta:
             t.alpha[t.edges[ei][1]] = g[o:o + n]
@@ -1153,35 +866,31 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
         # one fused window pass sharing the weight-product gathers,
         # instead of one weighted_partials_big loop per plane
         by_node: dict = {}
-        for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
+        for pi, ((i,), plane) in enumerate(zip(t.projs, t.planes)):
             if pi in t.done_folds:
                 continue
             m = _lazy_mul(t.beta[i], t.alpha[i])
             if isinstance(m, _Lazy):
                 by_node.setdefault(i, []).append((pi, plane, m))
         for i, lst in by_node.items():
-            if len(lst) < 2 and wsort in (False, None, "off"):
+            if len(lst) < 2:
                 # a single lazy fold goes through weighted_partials_big
-                # below — UNLESS wsort may engage, where the fused
-                # pass's sorted windows buy the hier gathers even for
-                # one fold (note wsort is a MODE STRING here: the
-                # literal "off" must route like False)
+                # below
                 continue
             flag_idx = (0 if (i == t.root and t.tnode is None
                               and t.done_flag is None
                               and msg_mask[i] is mask[i]) else None)
             _al, fold_list, anyp = _fused_node_pass(
                 lst[0][1].shape[0], [],
-                [(plane, m.with_mask(msg_mask[i]), t.plane_bits[_pi])
-                 for (_pi, plane, m) in lst], flag_idx, axis,
-                wsort=wsort)
+                [(plane, m.with_mask(msg_mask[i])) for (_pi, plane, m) in lst],
+                flag_idx, axis)
             for (pi, _plane, _m), f in zip(lst, fold_list):
                 t.done_folds[pi] = f
             if anyp is not None:
                 t.done_flag = anyp
 
         tree_outs, root_fold = [], None
-        for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
+        for pi, ((i,), plane) in enumerate(zip(t.projs, t.planes)):
             if pi in t.done_folds:
                 # already folded inside a fused window loop
                 # (_fused_node_pass) — zero extra passes
@@ -1328,8 +1037,7 @@ def run_ftree_wave(wspecs, cols, vals, axis=None, shards=None,
     return tuple(flags), parts
 
 
-def run_ftree(spec, cols, vals, scatter="xla", gather="xla",
-              wsort=False):
+def run_ftree(spec, cols, vals):
     """Execute one factorized tree (a single-spec wave). Returns
     (flags, partials): one bool flag per flag_node plus the M-emptiness
     flag, and partials = a 1-tuple holding ONE (n_projs, 5, 3) stack of
@@ -1337,6 +1045,5 @@ def run_ftree(spec, cols, vals, scatter="xla", gather="xla",
     decode each row with utils/limbs.py:combine_weighted_segments).
     Traced inline under the fused stage program (ops/stage.py)."""
     return run_ftree_wave(((spec, len(cols), len(vals)),),
-                          tuple(cols), tuple(vals),
-                          scatter=scatter, gather=gather, wsort=wsort)
+                          tuple(cols), tuple(vals))
 

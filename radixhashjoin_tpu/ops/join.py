@@ -2,7 +2,7 @@
 
 The reference joins via single-level radix partition + per-bucket chained
 hash tables (Result.cpp:43-124, structs.cpp:144-204). A pointer-chasing hash
-probe is hostile to TPU vector lanes; the XLA-native formulation — sort the
+probe is hostile to vector lanes; the XLA-native formulation — sort the
 right side once, binary-search every left value, expand match runs — was
 validated to reproduce the reference's output exactly (SURVEY.md §9) and is
 skew-proof (no partition can blow up; worst case is the sort's n log n).
@@ -13,7 +13,8 @@ exact output size (host reads one scalar, picks a padded output bucket);
 
 Padding sentinels: left values -1 (matches nothing, all data >= 0), right
 values INT32_MAX (engine guarantees data <= INT32_MAX - 1 on the narrow
-path). The Pallas radix backend (ops/pallas_join.py) is the same interface.
+path). The dense direct-address backend (ops/join_dense.py) has the same
+interface.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 
 # numpy scalar, NOT a jnp array: a captured device-array constant forces a
-# device->host fetch at lowering time (pathologically slow over remote
-# device tunnels); numpy constants embed directly into the HLO.
+# device->host fetch at lowering time; numpy constants embed directly
+# into the HLO.
 RIGHT_SENTINEL = np.int32(2**31 - 1)
 
 

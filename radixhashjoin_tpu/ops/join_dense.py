@@ -16,8 +16,7 @@ and first-match offset in O(1) lookups.
 
   expand: left_of[k] via scatter-max of left indices at their output
           offsets + cummax — replacing an 8M-wide binary search
-          (searchsorted) with two O(n) primitives. ~13x faster than the
-          scan-method searchsorted on a v5e chip at 8M rows.
+          (searchsorted) with two O(n) primitives.
 
 Interface-compatible with ops/join.py (the sort backend): probe returns
 (order, lo, offsets, cum, total); expand returns (li, ri). The sort
@@ -33,16 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .join import _total_or_overflow
-from .tables import scatter_table, table_gather2
-
-# NOTE (measured, v5e, 2026-08-17): a scatter-claim construction of
-# `order` — round r scatter-min-elects the rank-r element of each value,
-# skipping the sort entirely — was built, verified exact, and measured
-# 20x SLOWER than the argsort at 2^23 rows (3.2M vs ~60M tuples/s):
-# XLA lowers non-unique-index scatter at ~bincount speed (~110M
-# updates/s), not the 820 GB/s unique-index fast path, so each claim
-# round costs as much as a full sort pass. jnp.argsort stays.
-# (git history: "Scatter-claim grouped order replaces argsort".)
+from .tables import scatter_add, table_gather
 
 
 @partial(jax.jit, static_argnames=("domain",))
@@ -52,16 +42,14 @@ def dense_probe(lvals, lcount, rvals, rcount, domain: int):
     li = jax.lax.broadcasted_iota(jnp.int32, (L,), 0)
     ri = jax.lax.broadcasted_iota(jnp.int32, (R,), 0)
     rv = jnp.where(ri < rcount, rvals, np.int32(domain))      # dead -> drop
-    # table build + double lookup ride the int8 MXU paths when the
-    # domain is narrow and the sides are large (ops/tables.py "auto" —
-    # measured 32x the gather engine / 178x the scatter engine)
-    t_cnt = scatter_table(rv, jnp.ones(R, jnp.int32), domain, "auto")
+    t_cnt = scatter_add(jnp.zeros(domain, jnp.int32), rv,
+                        jnp.ones(R, jnp.int32))
     t_lo = jnp.cumsum(t_cnt) - t_cnt
     # stable value-sort of the right side; dead lanes (= domain) sort last
     order = jnp.argsort(rv).astype(jnp.int32)
     lv = jnp.where(li < lcount, lvals, np.int32(-1))
     lv_safe = jnp.clip(lv, 0, domain - 1)
-    cnt_g, lo = table_gather2(t_cnt, t_lo, lv_safe, "auto")
+    cnt_g, lo = table_gather(t_cnt, lv_safe), table_gather(t_lo, lv_safe)
     counts = jnp.where(lv >= 0, cnt_g, 0)
     cum = jnp.cumsum(counts)
     return order, lo, cum - counts, cum, _total_or_overflow(cum)
@@ -92,7 +80,6 @@ def dense_any_common(avals, bvals, count, domain: int):
     idx = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
     live = idx < count
     bv = jnp.where(live, bvals, np.int32(domain))
-    t = scatter_table(bv, jnp.ones(n, jnp.int32), domain, "auto")
+    t = scatter_add(jnp.zeros(domain, jnp.int32), bv, jnp.ones(n, jnp.int32))
     av = jnp.clip(jnp.where(live, avals, np.int32(0)), 0, domain - 1)
-    from .tables import table_gather
-    return jnp.any((table_gather(t, av, "auto") > 0) & live)
+    return jnp.any((table_gather(t, av) > 0) & live)

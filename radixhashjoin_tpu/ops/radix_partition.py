@@ -3,14 +3,14 @@
 The reference's partitioner (histogram -> per-chunk prefix sums -> stable
 scatter -> serial bucket-major gather, structs.cpp:111-204) reorders a
 tuple array so each radix digit's rows are contiguous, with a histogram
-giving bucket extents. The TPU formulation is one stable sort by digit —
-XLA's sort is the machine's fastest reordering primitive (19 ms for 8M
-int32 on a v5e) — plus a bincount for the extents; both vectorize, nothing
+giving bucket extents. The array formulation is one stable sort by digit —
+XLA's sort is the fastest general reordering primitive — plus a
+bincount for the extents; both vectorize, nothing
 is serial, and stability preserves the reference's within-bucket order.
 
 Two-level use (SURVEY.md §5): level 0 routes digits across chips
 (parallel/dist_join.py's all_to_all exchange); this op is level 1, splitting
-a chip's rows into VMEM-sized digit classes for per-bucket kernels. The
+a chip's rows into digit classes for per-bucket work. The
 dense direct-address backend doesn't need it (partitioning dissolves into
 addressing); it serves the unbounded-domain sort backend and any consumer
 that wants physically partitioned data.

@@ -144,10 +144,7 @@ class DistExecutor:
                             for c in cols)
         packed = np.asarray(d_ftree(self.mesh, self.axis, tuple(wspecs),
                                     tuple(node_rows), tuple(node_caps),
-                                    col_sharded, tuple(cols), tuple(vals),
-                                    scatter=self.config.ftree_scatter,
-                                    gather=self.config.ftree_gather,
-                                    wsort=self._planner._resolve_wsort()))
+                                    col_sharded, tuple(cols), tuple(vals)))
         total_nf = sum(cached[4] for _, cached in items)
         parts_all = merge_fold16(packed[total_nf:].reshape(2, -1, 5, 3))
         out: List[Optional[List[int]]] = []
@@ -250,12 +247,8 @@ class DistExecutor:
                 # sharded rowid slab (d_seed out_specs concatenate the
                 # per-chip blocks), so // n recovers the per-chip capL
                 # that _gather_cap expects; the initial ecap is then
-                # ~2x the uniform per-destination share 2*capL/n.
-                # (ADVICE r4 flagged this division as n-fold undersized
-                # by reading shape[0] as per-chip — verified wrong on a
-                # real 8-mesh: shape[0] == n*cap, and EVIDENCE_r04's
-                # gather_retries: 0 at 2^22 rows/chip confirms the
-                # bounded first dispatch does not overflow.)
+                # ~2x the uniform per-destination share 2*capL/n
+                # (shape[0] is n*cap, not the per-chip cap).
                 ((Lrow, Rrow, order, lo, off, cum, totals, _st),
                  stats) = self._gather_retry(
                     max(live[s1][0].shape[0],
@@ -319,10 +312,12 @@ class DistExecutor:
             return None
         return sums
 
-    def run_batch(self, batch: Sequence[Query]) -> List[str]:
-        """One batch: all factorizable queries merge into ONE d_ftree
-        wave (one dispatch + one readback); the rest run through the
-        exchange pipeline individually."""
+    def run_batch_raw(self, batch: Sequence[Query]
+                      ) -> List[Optional[List[int]]]:
+        """One batch: factorizable queries merge into d_ftree waves of
+        `stage_group` queries (one compiled program, one dispatch and one
+        readback each); the rest run through the exchange pipeline one
+        by one. Returns per-query sums (None = NULL line)."""
         results: List[Optional[List[int]]] = [None] * len(batch)
         wave = []
         for i, q in enumerate(batch):
@@ -334,15 +329,14 @@ class DistExecutor:
                 wave.append((i, q, cached))
             else:
                 results[i] = self.execute(q)
-        if wave:
-            sums = self._execute_ftree_wave([(q, c) for _, q, c in wave])
-            for (i, _, _), s in zip(wave, sums):
+        group = max(self.config.stage_group, 1)
+        for k in range(0, len(wave), group):
+            chunk = wave[k:k + group]
+            sums = self._execute_ftree_wave([(q, c) for _, q, c in chunk])
+            for (i, _, _), s in zip(chunk, sums):
                 results[i] = s
-        return [format_result(r, len(q.projections))
-                for r, q in zip(results, batch)]
+        return results
 
-    def run_workload(self, batches) -> List[str]:
-        out: List[str] = []
-        for batch in batches:
-            out.extend(self.run_batch(batch))
-        return out
+    def run_batch(self, batch: Sequence[Query]) -> List[str]:
+        return [format_result(r, len(q.projections))
+                for r, q in zip(self.run_batch_raw(batch), batch)]

@@ -2,10 +2,9 @@
 
 Two-level radix design (SURVEY.md §5 "long-context" analog): level 0 routes
 every row to the chip that owns its key digit (`key mod n_chips`) via
-`lax.all_to_all` over ICI — the cross-chip analog of the reference's
+`lax.all_to_all` — the cross-chip analog of the reference's
 partition scatter (structs.cpp:123-134); level 1 is each chip's local join
-over its digit class (sort+searchsorted here; the Pallas build/probe kernel
-drops in per-chip). Because both sides route by the same digit function,
+over its digit class (sort+searchsorted). Because both sides route by the same digit function,
 all matches are chip-local after the exchange.
 
 Capacity discipline: `all_to_all` needs a static per-destination capacity.
@@ -50,8 +49,7 @@ def _bin_by_digit(vals: jax.Array, count: jax.Array, n_dest: int,
     live = (idx < count) & (vals != sentinel)
     digit = jnp.where(live, vals % n_dest, np.int32(n_dest))
     # one stable digit sort + strided gathers (ops/radix_partition.py) —
-    # the same formulation as dist_ops._bin_pairs, which measured better
-    # than n_dest cumsum+scatter passes on TPU
+    # the same formulation as dist_ops._bin_pairs
     (vp,), hist, offs = partition_by_digit(digit, (vals,), n_dest)
     j = jax.lax.broadcasted_iota(jnp.int32, (n_dest, capacity), 1)
     src = jnp.clip(offs[:, None] + j, 0, n - 1)
@@ -99,8 +97,8 @@ def radix_exchange(lvals, lcount, rvals, rcount, n_dest: int, capacity: int,
 def _local_join_count_sum(lflat: jax.Array, rflat: jax.Array):
     """Chip-local join over sentineled flat values: (pair count, sum of
     matched left values as two int32 limbs). Sort+searchsorted level 1.
-    method='sort' — the default 'scan' does a binary search whose per-step
-    gathers are ~7x slower on TPU at multi-million-row shapes."""
+    method='sort': one merge-style pass instead of a binary search whose
+    every step is a gather."""
     rs = jnp.sort(rflat)
     lo = jnp.searchsorted(rs, lflat, side="left",
                           method="sort").astype(jnp.int32)

@@ -96,6 +96,11 @@ def _partials_of_vals(vals):
                       hi.reshape(n // CHUNK, CHUNK).sum(1, dtype=jnp.int32)])
 
 
+def _mat_row(mat, row):
+    """Row `row` (a traced scalar) of a (k, P) intermediate."""
+    return jax.lax.dynamic_index_in_dim(mat, row, 0, keepdims=False)
+
+
 def _shard_base(col, axis):
     """Global rowid of this chip's first column row (ownership contract:
     chip i owns rows [i*cap, (i+1)*cap), DeviceCatalog.shard_cap)."""
@@ -248,19 +253,21 @@ def _mask_heavy(vals, heavy, n, sentinel, keep_heavy: bool):
 
 # ---- SPMD ops (global-array interface; mesh/axis static) ----
 
-@partial(jax.jit, static_argnames=("mesh", "axis", "nrows", "cap"))
-def d_seed(mesh, axis, nrows: int, cap: int):
+@partial(jax.jit, static_argnames=("mesh", "axis", "cap"))
+def d_seed(mesh, axis, nrows, cap: int):
     """Seed a slot's live set: shard i owns rowids [i*cap, (i+1)*cap) —
     the SAME ranges as the relation's column shards (cap must be
     DeviceCatalog.shard_cap), so every live-set gather is chip-local.
+    nrows is traced: relations of one shard capacity share a program.
     Returns (rows (n*cap,) sharded, counts (n,) sharded)."""
-    @partial(shard_map, mesh=mesh, in_specs=(), out_specs=(P(axis), P(axis)))
-    def body():
+    @partial(shard_map, mesh=mesh, in_specs=P(),
+             out_specs=(P(axis), P(axis)))
+    def body(nrows):
         i = jax.lax.axis_index(axis)
         rows = i * cap + jax.lax.broadcasted_iota(jnp.int32, (cap,), 0)
         cnt = jnp.clip(nrows - i * cap, 0, cap)
         return rows, cnt.astype(jnp.int32).reshape(1)
-    return body()
+    return body(jnp.asarray(nrows, jnp.int32))
 
 
 @partial(jax.jit, static_argnames=("mesh", "axis", "opc"))
@@ -379,8 +386,7 @@ def d_case1_probe(mesh, axis, heavy_frac: float, chunks: int, colA, colB,
     sub-exchange bounds at ecap/K per destination. The probe-side R
     vector shrinks from n*(capR + capR) to n*(ecap + ecap) lanes, and
     with it every argsort/searchsorted temp — the dominant per-chip
-    memory of the exchange path at data scale (measured 12.6 GB/chip at
-    2^22 rows/chip worst-case on the 8-mesh; EVIDENCE_r04). ecap == 0
+    memory of the exchange path at data scale. ecap == 0
     keeps the worst-case shapes (cannot overflow).
 
     PIPELINED EXCHANGE (`chunks` > 1): the left side is exchanged in K
@@ -498,9 +504,9 @@ def _fresh_vals(col_fresh, frows, fc, axis):
                      RIGHT_SENTINEL)
 
 
-@partial(jax.jit, static_argnames=("mesh", "axis", "full_row", "gchunks",
-                                   "gcap", "bchunks"))
-def d_case2_probe(mesh, axis, full_row: int, col_full, mat, icnts,
+@partial(jax.jit, static_argnames=("mesh", "axis", "gchunks", "gcap",
+                                   "bchunks"))
+def d_case2_probe(mesh, axis, full_row, col_full, mat, icnts,
                   col_fresh, frows, fcnts, gchunks: int = 1,
                   gcap: int = 0, bchunks: int = 1):
     """Case-2 probe: broadcast the (small, filtered) fresh side, probe the
@@ -514,21 +520,24 @@ def d_case2_probe(mesh, axis, full_row: int, col_full, mat, icnts,
     (d_case2_expand re-gathers chunk by chunk and writes each chunk's
     matches at running per-lane offsets — same multiset, chunk order).
 
+    full_row (the intermediate row of the joined side) is traced, so
+    every row of one intermediate shape shares a program.
+
     Returns (lv sharded, off, cum, totals, stats);
     stats = [min_total, max_total, gather_overflow] (overflow > 0 =>
     re-dispatch with a larger gcap, DistExecutor._gather_retry)."""
     n = mesh.shape[axis]
 
     @partial(shard_map, mesh=mesh,
-             in_specs=(P(axis), P(None, axis), P(axis), P(axis), P(axis),
-                       P(axis)),
+             in_specs=(P(), P(axis), P(None, axis), P(axis), P(axis),
+                       P(axis), P(axis)),
              out_specs=(P(axis),) * 4 + (P(),))
-    def body(col_full, mat, icnts, col_fresh, frows, fc):
+    def body(full_row, col_full, mat, icnts, col_fresh, frows, fc):
         w = mat.shape[1]
         idx = jax.lax.broadcasted_iota(jnp.int32, (w,), 0)
         live = idx < icnts[0]
-        gv, ovf = _dist_gather(col_full, mat[full_row], live, axis, n,
-                               gchunks, gcap)
+        gv, ovf = _dist_gather(col_full, _mat_row(mat, full_row), live,
+                               axis, n, gchunks, gcap)
         lv = jnp.where(live, gv, LEFT_SENTINEL)
         fv = _fresh_vals(col_fresh, frows, fc, axis)
         capF = frows.shape[0]
@@ -551,7 +560,8 @@ def d_case2_probe(mesh, axis, full_row: int, col_full, mat, icnts,
                            jax.lax.pmax(total, axis),
                            jax.lax.psum(ovf.astype(jnp.int32), axis)])
         return lv, cum - counts, cum, total.reshape(1), stats
-    return body(col_full, mat, icnts, col_fresh, frows, fcnts)
+    return body(jnp.asarray(full_row, jnp.int32), col_full, mat, icnts,
+                col_fresh, frows, fcnts)
 
 
 @partial(jax.jit, static_argnames=("mesh", "axis", "out_cap", "bchunks"))
@@ -605,15 +615,15 @@ def d_case2_expand(mesh, axis, out_cap: int, mat, lv, col_fresh, frows,
     return body(mat, lv, col_fresh, frows, fcnts, off)
 
 
-@partial(jax.jit, static_argnames=("mesh", "axis", "row", "gchunks",
-                                   "gcap"))
-def d_project(mesh, axis, row: int, plane, mat, icnts, gchunks: int = 1,
+@partial(jax.jit, static_argnames=("mesh", "axis", "gchunks", "gcap"))
+def d_project(mesh, axis, row, plane, mat, icnts, gchunks: int = 1,
               gcap: int = 0):
     """Exact limb partial sums of plane[mat[row]] over every shard's live
     prefix, folded per shard, split into 16-bit halves, then psum'd
     across the mesh — exact to MAX_PSUM_CHIPS (2**15) devices
     (utils/limbs.py). The host merges halves (merge_fold16) before
-    combine_limb_partials. Returns (partials, replicated gather-overflow
+    combine_limb_partials. `row` is traced (one program per plane and
+    intermediate shape). Returns (partials, replicated gather-overflow
     flag — True => re-dispatch with a larger gcap)."""
     n = mesh.shape[axis]
     if n > MAX_PSUM_CHIPS:
@@ -621,31 +631,30 @@ def d_project(mesh, axis, row: int, plane, mat, icnts, gchunks: int = 1,
                          f" exact psum folds cap at {MAX_PSUM_CHIPS}")
 
     @partial(shard_map, mesh=mesh,
-             in_specs=(P(axis), P(None, axis), P(axis)),
+             in_specs=(P(), P(axis), P(None, axis), P(axis)),
              out_specs=(P(), P()))
-    def body(plane, mat, icnts):
+    def body(row, plane, mat, icnts):
         w = mat.shape[1]
         idx = jax.lax.broadcasted_iota(jnp.int32, (w,), 0)
         live = idx < icnts[0]
-        gv, ovf = _dist_gather(plane, mat[row], live, axis, n,
+        gv, ovf = _dist_gather(plane, _mat_row(mat, row), live, axis, n,
                                gchunks, gcap)
         vals = jnp.where(live, gv, 0)
         return (jax.lax.psum(split_fold16(fold_partials(
             _partials_of_vals(vals))), axis),
             jax.lax.psum(ovf.astype(jnp.int32), axis) > 0)
-    return body(plane, mat, icnts)
+    return body(jnp.asarray(row, jnp.int32), plane, mat, icnts)
 
 
 @partial(jax.jit, static_argnames=("mesh", "axis", "wspecs", "node_rows",
-                                   "node_caps", "col_sharded", "scatter",
-                                   "gather", "wsort"))
+                                   "node_caps", "col_sharded"))
 def d_ftree(mesh, axis, wspecs, node_rows, node_caps, col_sharded,
-            cols, vals, scatter="xla", gather="xla", wsort="off"):
+            cols, vals):
     """Whole factorized queries SPMD (ops/factorized.py:run_ftree_wave
     in distributed mode): every node column arrives as this chip's ROW
     SHARD (DeviceCatalog.row_shard layout — no replica exists anywhere),
     each tree level's message table goes global with ONE psum — the
-    TPU-native analog of the reference's per-chunk histogram merge
+    array analog of the reference's per-chunk histogram merge
     (/root/reference/structs.cpp:168-173) — and all gathers stay local.
 
     wspecs:      tuple of (spec, n_cols, n_vals), as in run_ftree_wave
@@ -686,9 +695,7 @@ def d_ftree(mesh, axis, wspecs, node_rows, node_caps, col_sharded,
 
             shards.append((slicer, valid))
         flags, outs = run_ftree_wave(wspecs, cols, vals,
-                                     axis=axis, shards=tuple(shards),
-                                     scatter=scatter, gather=gather,
-                                     wsort=wsort)
+                                     axis=axis, shards=tuple(shards))
         segs = []
         if flags:
             segs.append(jnp.stack(flags).astype(jnp.int32))

@@ -1,7 +1,7 @@
 """Multi-host initialization: one engine process per host, one global mesh.
 
 The reference is strictly single-process shared memory (SURVEY.md §5 —
-pthreads, no NCCL/MPI/sockets); this is the TPU-pod equivalent:
+pthreads, no NCCL/MPI/sockets); this is the multi-host equivalent:
 `jax.distributed.initialize` joins every process into one runtime, the
 mesh spans all hosts' devices, and the SPMD ops in dist_ops.py run
 unchanged — `all_to_all`/`all_gather`/`psum` ride ICI within a host slice

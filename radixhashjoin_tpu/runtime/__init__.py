@@ -2,7 +2,7 @@
 
 The reference's host substrate is C++ (mmap loader structs.cpp:17-63,
 char-level parser Query.cpp:10-63, result printer Query.cpp:226-235). The
-TPU engine's device path is JAX/XLA; this package provides the equivalent
+engine's device path is JAX/XLA; this package provides the equivalent
 native host pieces — a multithreaded columnar loader with load-time stats,
 a workload parser, and a result formatter — as a small C++ library bound
 via ctypes, with bit-identical pure-Python fallbacks (storage.py,

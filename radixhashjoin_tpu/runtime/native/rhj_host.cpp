@@ -1,6 +1,6 @@
-// rhj_host: native host runtime for the TPU query engine.
+// rhj_host: native host runtime for the query engine.
 //
-// Re-implements, TPU-engine-shaped, the reference's host-side substrate:
+// Re-implements, shaped for the array engine, the reference's host-side substrate:
 //   * columnar relation loader (mmap, header validation) with multithreaded
 //     per-column stats — reference: relList ctor, structs.cpp:17-63, but
 //     distinct counting is sort-based (no dense bitmap memory bomb,

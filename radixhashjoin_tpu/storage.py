@@ -1,13 +1,13 @@
 """Columnar storage: relation loading and load-time statistics.
 
-Re-designs the reference's mmap loader (structs.cpp:17-63) TPU-natively:
+Re-designs the reference's mmap loader (structs.cpp:17-63) for the device path:
 
 * The on-disk contract is preserved bit-for-bit (SURVEY.md §2.4): little-endian
   ``[num_tuples u64][num_columns u64]`` then columns back-to-back column-major,
   each ``num_tuples`` uint64s; file size must equal ``(t*c + 2) * 8``
   (asserted like structs.cpp:30).
 * Columns are zero-copy ``np.memmap`` views on the host. Device copies are
-  narrowed to int32 when values fit (TPU lanes are 32-bit); wider columns keep
+  narrowed to int32 when values fit (the device path's lanes); wider columns keep
   a two-plane (hi32/lo32) representation for the device path.
 * Per-column stats — min / max / exact distinct count — mirror
   structs.cpp:40-61, but distinct is computed by sorting (O(n log n), no

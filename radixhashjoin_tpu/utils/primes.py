@@ -1,7 +1,7 @@
 """Math utils (reference parity: auxFun.cpp:4-26).
 
 The reference sizes its chained hash tables with `next_prime(|build|)`
-(Result.cpp:45). The TPU engine's direct-address and sort formulations
+(Result.cpp:45). The engine's direct-address and sort formulations
 need no prime-sized tables, but the utility remains part of the public
 surface for users sizing their own hash structures, plus the power-of-two
 helpers the padding policy uses.

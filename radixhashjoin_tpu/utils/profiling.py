@@ -1,13 +1,13 @@
 """Per-operator profiling and roofline accounting.
 
 The reference has no runtime observability at all (SURVEY.md §5: two
-commented-out clock_t lines; its "profiler" is GCC PGO). The TPU engine
+commented-out clock_t lines; its "profiler" is GCC PGO). The engine
 provides:
 
 * OpProfiler — per-operator call counts, wall time (synchronized), bytes
-  touched, and % of speed-of-light HBM bandwidth (the engine is gather/
-  sort-bound, so bandwidth is the roofline that matters; MXU FLOPs are
-  negligible for joins).
+  touched, and % of the device's peak memory bandwidth (the engine is
+  gather/scatter/sort-bound integer work, so bandwidth is the roofline
+  that matters).
 * jax.profiler passthrough — `with trace(dir):` for full XLA traces.
 
 Enable with EngineConfig.profile=True; the engine then synchronizes after
@@ -24,28 +24,28 @@ from typing import Dict, Optional
 
 import jax
 
-# Published per-chip HBM bandwidth by device kind; the roofline column
-# detects the actual backend instead of silently assuming one (CPU and
-# unknown kinds report no roofline rather than a wrong one).
-_HBM_BY_KIND = {
-    "TPU v4": 1228e9,
-    "TPU v5 lite": 819e9,
-    "TPU v5e": 819e9,
-    "TPU v5p": 2765e9,
-    "TPU v5": 2765e9,
-    "TPU v6 lite": 1640e9,
-    "TPU v6e": 1640e9,
+# Published peak device-memory bandwidth (bytes/s) by jax device_kind:
+# the one roofline denominator of every profile and benchmark.
+# Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 80 GB HBM3 part
+# (3.35 TB/s, at the card's full 700 W power limit).
+PEAK_HBM_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
 }
 
 
-def hbm_bytes_per_s() -> Optional[float]:
-    """Detected HBM bandwidth of the current default device, or None when
-    unknown (CPU/GPU/unlisted TPU kind)."""
-    try:
-        kind = jax.devices()[0].device_kind
-    except Exception:
+def hbm_bytes_per_s(device=None) -> Optional[float]:
+    """Peak memory bandwidth of `device` (default: the first device).
+
+    The CPU reports no roofline (None). An accelerator whose kind is not
+    in PEAK_HBM_BYTES_PER_S raises instead of guessing a peak."""
+    d = device if device is not None else jax.devices()[0]
+    if d.platform == "cpu":
         return None
-    return _HBM_BY_KIND.get(kind)
+    if d.device_kind not in PEAK_HBM_BYTES_PER_S:
+        raise ValueError(
+            f"no published peak bandwidth for device kind "
+            f"{d.device_kind!r}; add it to PEAK_HBM_BYTES_PER_S")
+    return PEAK_HBM_BYTES_PER_S[d.device_kind]
 
 
 @dataclasses.dataclass
@@ -78,7 +78,7 @@ class OpProfiler:
         tree — not a hand multiplier. Callers pass only the arrays the
         op scans in full (a table that is merely point-gathered at k
         positions is omitted; its ~k-element traffic is captured by the
-        same-width index/output arrays). This is a lower bound on HBM
+        same-width index/output arrays). This is a lower bound on memory
         traffic — XLA materializes at least inputs+outputs, and fusion
         only removes intermediate traffic — so the roofline column is a
         conservative % of speed-of-light.

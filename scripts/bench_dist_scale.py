@@ -1,5 +1,5 @@
 """Data-scale distributed validation: the SPMD engine at ~2**22 rows
-per chip on an 8-device mesh (VERDICT r3 #3), with
+per chip on an 8-device mesh, with
 
   * exactness asserted against independent numpy host oracles for BOTH
     engine paths — the d_ftree factorized wave (star join) and the
@@ -10,8 +10,8 @@ per chip on an 8-device mesh (VERDICT r3 #3), with
     estimates — including the _dist_gather request-matrix shrink from
     the histogram-sized capacity (gcap) vs the worst-case transient.
 
-Runs on the virtual CPU mesh by default (no TPU pod needed — the same
-programs AOT-compile for a real v5e pod via scripts/aot_pod_cache.py):
+Runs on the virtual CPU mesh by default (the same programs run on a
+multi-GPU host with --devices N):
 
     python scripts/bench_dist_scale.py [--rows-per-chip 22] [--devices 8]
 
@@ -63,7 +63,7 @@ def main() -> None:
                          "lazy huge-node threshold (_BIG_WAVE_ROWS) at "
                          "its REAL value — the shard cap buckets to the "
                          "next power of two and the validity mask "
-                         "covers the pad (VERDICT r4 #4)")
+                         "covers the pad)")
     args = ap.parse_args()
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:

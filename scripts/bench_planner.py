@@ -1,4 +1,4 @@
-"""Join-reordering planner measurement (VERDICT r4 #7).
+"""Join-reordering planner measurement.
 
 The reference computes join-selectivity statistics but never built the
 "enumeration" that would consume them (/root/reference/README.md:62-64);

@@ -33,28 +33,21 @@ def zipf_keys(key, n, n_keys, s=1.1):
     return ranks
 
 
-# HBM peak bandwidth of device kinds we bench on (bytes/s); the
-# roofline denominator for pct_hbm_peak. v5e: 819 GB/s.
-_HBM_PEAK = {"TPU v5 lite": 819e9, "TPU v5e": 819e9}
-
 
 def _roofline(bytes_min: int, dt: float) -> dict:
     """BASELINE's per-operator roofline accounting for the huge-node
-    passes: bytes_min = the MINIMUM HBM traffic of the measured
+    passes: bytes_min = the MINIMUM memory traffic of the measured
     program (each full logical pass must read its operand columns
     once; message tables are width-sized, cache-resident), gbps =
     achieved rate against that floor, pct_hbm_peak = how close the
     floor-traffic rate is to the chip's peak. 100% would mean the pass
     streams its operands at speed-of-light with zero overhead (sort
     network passes, gather/scatter engine latency, loop tails all push
-    it down) — the honest 'is this actually fast?' number VERDICT r4
-    asked for."""
+    it down). The peak comes from utils/profiling.py's one table."""
     import jax
-    try:
-        kind = jax.devices()[0].device_kind
-    except Exception:
-        kind = "?"
-    peak = _HBM_PEAK.get(kind)
+    from radixhashjoin_tpu.utils.profiling import hbm_bytes_per_s
+    kind = jax.devices()[0].device_kind
+    peak = hbm_bytes_per_s()
     gbps = bytes_min / dt / 1e9
     return {"bytes_min": int(bytes_min),
             "gbps_min_traffic": round(gbps, 1),
@@ -71,38 +64,26 @@ def main() -> None:
                    help="mesh size (0 = all available)")
     p.add_argument("--skew-rows", type=int, default=1 << 16,
                    help="rows for the skew-aware distributed config")
-    p.add_argument("--impl", default="both",
-                   help="table kernels for the small-dim star join: "
-                        "xla | auto | both (before/after delta)")
     p.add_argument("--zipf-engine", action="store_true",
                    help="BASELINE config 4: Zipf(1.1) join + SUM through "
                         "the engine, single chip")
     p.add_argument("--zipf-only", action="store_true",
-                   help="skip every other config (implies --zipf-engine): "
-                        "at 2^30 fact rows the fact columns alone are 8 GB "
-                        "of a v5e's 16 GB HBM — nothing else may hold "
-                        "device memory")
+                   help="skip every other config (implies --zipf-engine) "
+                        "so that nothing else holds device memory")
     p.add_argument("--zipf-rows", type=int, default=27,
                    help="log2 fact rows for --zipf-engine (default 134M)")
     p.add_argument("--star-rows", type=int, default=0,
                    help="log2 fact rows for the big STAR join config "
                         "(0 = skip; combine with --zipf-only to keep "
-                        "HBM clean at 2^29+)")
-    p.add_argument("--wsort", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="ftree_window_sort policy for the big engine "
-                        "configs (A/B the sorted-window fused passes)")
+                        "device memory clean at 2^29+)")
     p.add_argument("--chain-rows", type=int, default=0,
                    help="log2 rows for the big CHAIN config (fact1 JOIN "
                         "fact2 JOIN dim, BOTH facts huge — the 2-deep "
-                        "huge-chain shape of VERDICT r4 #3; 0 = skip)")
+                        "huge-chain shape; 0 = skip)")
     p.add_argument("--skew", action="store_true",
                    help="also run the distributed skew-aware config "
-                        "(opt-in: the TPU compiler takes ~60-90 s per "
-                        "8-chip SPMD program — measured 2026-08-19 via "
-                        "AOT topology compile: dist_join_skewaware 64 s, "
-                        "d_case1_probe 87 s — and the 8-virtual-device "
-                        "CPU tests already cover it functionally)")
+                        "(opt-in: the 8-virtual-device CPU tests already "
+                        "cover it functionally)")
     args = p.parse_args()
 
     if args.zipf_only:
@@ -149,9 +130,7 @@ def main() -> None:
             "seconds": round(dt, 4)}))
 
         # --- config: FK-shaped single-chip join (unique build side: the
-        # fact->dimension shape of most production joins; argsort stays the
-        # grouping primitive — the sort-free scatter-claim variant measured
-        # 20x slower and was reverted, EVIDENCE_r02.md) ---
+        # fact->dimension shape of most production joins) ---
         rv_fk = jax.random.permutation(k3, n_keys).astype(jnp.int32)  # dimension
         rcnt = jnp.int32(n_keys)
         r = dense_probe(lv, cnt, rv_fk, rcnt, domain)   # compile + warm
@@ -168,8 +147,7 @@ def main() -> None:
             "seconds": round(dt, 4)}))
 
         # --- config: NARROW-DOMAIN probe (keys < 4096): the dense backend's
-        # table build + double lookup ride the int8 MXU paths here
-        # (ops/tables.py auto; wide domains keep the scatter/gather engines) ---
+        # table build + double lookup over a 4096-entry table ---
         nd = 1 << 12
         lv_n = jax.random.randint(k1, (n,), 0, nd, dtype=jnp.int32)
         rv_n = jax.random.permutation(k3, nd).astype(jnp.int32)  # unique dim
@@ -219,9 +197,7 @@ def main() -> None:
 
         # --- config: SMALL-DIMENSION star join (1K-row dimensions, the
         # common star-schema shape): per-edge table widths put every message
-        # table at <= 1024 bins, engaging the one-hot MXU gather and Pallas
-        # one-hot scatter fast paths (ops/tables.py; measured 2.7-9x the
-        # XLA engines at these widths). --impl forces a path for the delta. ---
+        # table at <= 1024 bins ---
         nk_small = 1 << 10
         fact_s = Relation([rng.integers(0, nk_small, nf).astype(np.uint64),
                            rng.integers(0, nk_small, nf).astype(np.uint64),
@@ -229,21 +205,18 @@ def main() -> None:
         dims_s = [Relation([np.arange(nk_small, dtype=np.uint64),
                             rng.integers(0, 1000, nk_small).astype(np.uint64)])
                   for _ in range(2)]
-        for impl in (["xla", "auto"] if args.impl == "both" else [args.impl]):
-            eng_s = Engine([fact_s] + dims_s,
-                           EngineConfig(ftree_scatter=impl, ftree_gather=impl))
-            eng_s.run_workload([[q]])          # compile + warm
-            t0 = time.time()
-            for _ in range(iters):
-                out = eng_s.run_workload([[q]])
-            dt = (time.time() - t0) / iters
-            print(json.dumps({
-                "metric": "star_join_smalldim_engine_tuples_per_s",
-                "fact_rows": nf, "dim_rows": nk_small, "n_joins": 2,
-                "table_impl": impl,
-                "factorized": eng_s.batch_executor.counters["ftree_queries"] > 0,
-                "value": round((nf + 2 * nk_small) / dt), "unit": "tuples/s",
-                "seconds": round(dt, 4), "sums": out[0][:60]}))
+        eng_s = Engine([fact_s] + dims_s, EngineConfig())
+        eng_s.run_workload([[q]])          # compile + warm
+        t0 = time.time()
+        for _ in range(iters):
+            out = eng_s.run_workload([[q]])
+        dt = (time.time() - t0) / iters
+        print(json.dumps({
+            "metric": "star_join_smalldim_engine_tuples_per_s",
+            "fact_rows": nf, "dim_rows": nk_small, "n_joins": 2,
+            "factorized": eng_s.batch_executor.counters["ftree_queries"] > 0,
+            "value": round((nf + 2 * nk_small) / dt), "unit": "tuples/s",
+            "seconds": round(dt, 4), "sums": out[0][:60]}))
 
     # --- BASELINE config 4: >= 100M-row Zipf(1.1)-skewed join + exact
     # u64 SUM aggregate THROUGH THE ENGINE, single chip (opt-in: heavy
@@ -278,14 +251,12 @@ def main() -> None:
         exp1 = int((dimz.values[1] * cntz * keep).sum(dtype=np.uint64))
         expected = [f"{exp0 % 2**64} {exp1 % 2**64}"]
         # beyond 2^27 rows the materializing path's (2, rows) pair matrix
-        # + expansion transients stop fitting one chip's HBM: the
+        # + expansion transients stop fitting one chip's memory: the
         # factorized path (the engine's real path at scale) runs alone,
         # with the host oracle carrying the exactness check
         fact_modes = (True, False) if args.zipf_rows <= 27 else (True,)
         for fact_mode in fact_modes:
-            engz = Engine([factz, dimz],
-                          EngineConfig(factorized=fact_mode,
-                                       ftree_window_sort=args.wsort))
+            engz = Engine([factz, dimz], EngineConfig(factorized=fact_mode))
             got = engz.run_workload([[qz]])              # compile + warm
             assert got == expected, (got, expected)
             t0 = time.time()
@@ -300,10 +271,10 @@ def main() -> None:
                 "metric": "zipf_join_engine_tuples_per_s",
                 "rows": nz, "zipf_s": s, "n_keys": n_keys_z,
                 "hot_key_share": round(float(top), 4),
-                "factorized": fact_mode, "wsort": args.wsort,
+                "factorized": fact_mode,
                 # both exactness sources, self-described: the numpy host
                 # oracle always asserts; the materializing engine path
-                # cross-checks only while its pair matrix fits HBM
+                # cross-checks only while its pair matrix fits on the chip
                 "oracle_checked": True,
                 "cross_checked": len(fact_modes) > 1,
                 "value": round((nz + n_keys_z) / dt), "unit": "tuples/s",
@@ -318,8 +289,7 @@ def main() -> None:
     # PRODUCT of two message gathers, the down-pass A tables build
     # window by window with lazy sibling-product weights, and the
     # projection folds never materialize a fact-length temp
-    # (ops/factorized.py:_Lazy / _scatter_add_big) — at 2^30 rows the
-    # three fact columns alone are 12 GB of a 16 GB v5e. ---
+    # (ops/factorized.py:_Lazy / _scatter_add_big). ---
     if args.star_rows:
         ns = 1 << args.star_rows
         n_keys_s = 1 << 20
@@ -347,8 +317,7 @@ def main() -> None:
         e2 = int((d2v[zk2.astype(np.int64)] * keep).sum(dtype=np.uint64)
                  ) % 2**64
         expected = [f"{e0} {e1} {e2}"]
-        engs = Engine([facts, d1, d2],
-                      EngineConfig(ftree_window_sort=args.wsort))
+        engs = Engine([facts, d1, d2], EngineConfig())
         got = engs.run_workload([[qs]])              # compile + warm
         assert got == expected, (got, expected)
         t0 = time.time()
@@ -364,13 +333,12 @@ def main() -> None:
             "rows": ns, "zipf_s": 1.1, "n_keys": n_keys_s, "n_joins": 2,
             "factorized":
                 engs.batch_executor.counters["ftree_queries"] > 0,
-            "wsort": args.wsort,
             "oracle_checked": True,
             "value": round((ns + 2 * n_keys_s) / dt), "unit": "tuples/s",
             "seconds": round(dt, 4), "sums": outs[0][:80],
             "fused_passes": 1, **_roofline(ns * (4 + 4 + 2), dt)}))
 
-    # --- 2-deep HUGE CHAIN (VERDICT r4 #3): fact1 JOIN fact2 JOIN dim
+    # --- 2-deep HUGE CHAIN: fact1 JOIN fact2 JOIN dim
     # with BOTH facts past the huge threshold. The up pass B-builds
     # over huge fact2 with a lazy gather weight (one window loop), the
     # down pass runs one fused loop per huge node (A build + that
@@ -418,8 +386,7 @@ def main() -> None:
         assert m2b.max() < 2**53
         e2 = int((dv * m2b.astype(U) * keep).sum(dtype=U)) % 2**64
         expected = [f"{e0} {e1} {e2}"]
-        engc = Engine([fc1, fc2, dc],
-                      EngineConfig(ftree_window_sort=args.wsort))
+        engc = Engine([fc1, fc2, dc], EngineConfig())
         got = engc.run_workload([[qc]])              # compile + warm
         assert got == expected, (got, expected)
         t0 = time.time()
@@ -431,7 +398,6 @@ def main() -> None:
             "rows_per_fact": nc, "n_keys": n_keys_c, "n_joins": 2,
             "factorized":
                 engc.batch_executor.counters["ftree_queries"] > 0,
-            "wsort": args.wsort,
             "oracle_checked": True,
             "value": round(2 * nc / dt), "unit": "tuples/s",
             "seconds": round(dt, 4), "sums": outc[0][:80],

@@ -8,8 +8,8 @@ the SAME distributed workload (multi-host SPMD: identical host programs,
 sharded device data — parallel/multihost.py). The coordinator process
 prints per-query results and MULTIHOST_OK on an oracle match. On CPU this
 runs 4 virtual devices per process (tests/test_multihost.py spawns 2
-processes for a 2x4 global mesh); on a TPU pod the same script runs one
-process per host with its real chips.
+processes for a 2x4 global mesh); on a GPU cluster the same script runs
+one process per host with its real cards.
 """
 
 import os

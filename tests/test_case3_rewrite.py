@@ -247,7 +247,7 @@ def test_transitive_cycle_rewrites_onto_direct_edge():
     # chain A-B-C, then A.0 = C.1: class(A.0) contains (B,0) via the
     # first edge, and B-C IS a direct edge -> the predicate fuses into
     # it as a composite key (path rewrite through the union-find) — the
-    # class the old planner fell back on (VERDICT r3 #5)
+    # class the old planner fell back on
     A = _u64([1, 2, 3], [10, 20, 30])
     B = _u64([1, 2, 2], [7, 8, 9])
     C = _u64([7, 8, 9, 8], [1, 2, 3, 9])
@@ -290,7 +290,7 @@ def test_transitive_cycle_trailing_pair_gate():
 def test_multiple_trailing_native_sels_surviving_rows():
     # TWO same-slot selections after the last join, on DIFFERENT nodes:
     # the sums spec masks both (tsels) and the trailing-free companion
-    # decides NULL — previously a fallback (VERDICT r3 #5)
+    # decides NULL — previously a fallback
     A = _u64([1, 2, 3], [1, 5, 3], [1, 9, 3])
     B = _u64([1, 2, 3], [4, 5, 6], [4, 9, 6])
     q = Query([0, 1],
@@ -398,21 +398,17 @@ def test_identity_after_pending_trailing_sel_falls_back():
     _run([A, B], q, expect_ftree=False)
 
 
-def test_golden_cyclic_queries_factorize():
-    """The 6 golden queries with parallel edges all ride the ftree path."""
-    from radixhashjoin_tpu.storage import load_relation
-    from radixhashjoin_tpu.workload import parse_work_stream
-    small = "/root/reference/small"
-    rels = [load_relation(f"{small}/r{i}") for i in range(14)]
-    with open(f"{small}/small.work") as f:
-        batches = parse_work_stream(f)
-    with open(f"{small}/small.result") as f:
-        golden = [line.rstrip("\n") for line in f]
-    queries = [q for b in batches for q in b]
-    idx = [19, 22, 23, 34, 37, 48]
-    engine = Engine(rels, EngineConfig())
+def test_golden_cyclic_queries_factorize(small_catalog, small_batches,
+                                         golden_lines):
+    """The contest queries with parallel edges all ride the ftree path."""
+    queries = [q for b in small_batches for q in b]
+    idx = [i for i, q in enumerate(queries)
+           if len({frozenset((j.slot1, j.slot2)) for j in q.joins})
+           < len(q.joins)]
+    assert len(idx) >= 2
+    engine = Engine(small_catalog, EngineConfig())
     got = engine.run_workload([[queries[i] for i in idx]])
-    assert got == [golden[i] for i in idx]
+    assert got == [golden_lines[i] for i in idx]
     assert engine.batch_executor.counters["ftree_queries"] == len(idx)
 
 

@@ -1,6 +1,6 @@
 """Direct unit tests for the deferred-attach planner and speculative
 expansion sizing (models/batch.py _plan_stage) — the subtlest logic in the
-engine, previously covered only indirectly (VERDICT r1 weak #5).
+engine, previously covered only indirectly.
 
 Every scenario checks exact agreement with the NumPy oracle AND asserts
 the planner actually took the intended shape (dispatch counts, retry

@@ -350,24 +350,15 @@ def test_dist_exchange_capacity_retry(monkeypatch):
     assert ex.counters["gather_retries"] > 0
 
 
-def test_dist_wsort_huge_shards(monkeypatch):
-    """Sorted windows INSIDE shard_map (ftree_window_sort="on"): each
-    chip's huge-shard windows sort locally (collective-free), shard
-    validity masks ride the permutation as packed 1-bit payloads, and
-    masked primary-key scatters keep their sorted order by zeroing
-    WEIGHTS instead of sentinel-rewriting keys. Exact vs the oracle on
-    the 8-virtual-device mesh; "off" must agree (policy equivalence)."""
-    from radixhashjoin_tpu.ops import factorized, tables
+def test_dist_huge_shards(monkeypatch):
+    """Huge-node window loops INSIDE shard_map: each chip walks the
+    windows of its own shard, shard validity masks zero the pad rows,
+    and one psum per level makes the message tables global. Exact vs
+    the oracle on the 8-virtual-device mesh."""
+    from radixhashjoin_tpu.ops import factorized
     from radixhashjoin_tpu.utils import limbs
     monkeypatch.setattr(factorized, "_BIG_WAVE_ROWS", 512)
     monkeypatch.setattr(limbs, "_BIG_WINDOW_ROWS", 4 * limbs.WCHUNK)
-    # shrink kernel thresholds so hier presorted paths engage at test
-    # widths (late-bound defaults honor these)
-    monkeypatch.setattr(tables, "MXU_SCATTER_MAX_BINS", 16)
-    monkeypatch.setattr(tables, "HIER_BLOCK_ROWS", 128)
-    monkeypatch.setattr(tables, "HIER_SUB_WIDTH", 128)
-    monkeypatch.setattr(tables, "HIER_GATHER_BLOCK_ROWS", 128)
-    monkeypatch.setattr(tables, "HIER_GATHER_SUB_WIDTH", 128)
     rng = np.random.default_rng(78)
     n = 8 * 700 + 33
     fact = Relation([rng.integers(0, 100, n).astype(np.uint64),
@@ -389,6 +380,5 @@ def test_dist_wsort_huge_shards(monkeypatch):
         Query([0, 1, 2], star, [FilterPred(1, 1, "=", 55555)],
               [Projection(0, 2)]),
     ]
-    ex = _check(rels, queries, EngineConfig(ftree_window_sort="on"))
+    ex = _check(rels, queries, EngineConfig())
     assert ex.counters["ftree_queries"] == len(queries)
-    _check(rels, queries, EngineConfig(ftree_window_sort="off"))

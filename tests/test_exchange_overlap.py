@@ -3,21 +3,16 @@
 BASELINE's north star names "exchange overlapped with build/probe
 compute" (SURVEY §7 phase 5). d_case1_probe(chunks=K) splits the left
 exchange into K sub-exchanges, each probed as soon as it lands; these
-tests prove the program structure at two levels:
-
-1. StableHLO (any backend): exactly K+1 all_to_alls — the exchange is
-   genuinely chunked, and chunk probes depend only on their own chunk.
-2. TPU scheduled HLO (AOT-compiled for an 8-chip v5e topology, no
-   devices needed): with async all-to-all conversion on, every
-   all-to-all becomes a start/done pair with probe/sort compute
-   scheduled INSIDE the in-flight window — the XLA-level successor of
-   the reference's pipelined job queue
-   (/root/reference/JobScheduler.cpp:103-122).
+tests prove the program structure in StableHLO (any backend): exactly
+K+1 all_to_alls — the exchange is genuinely chunked, and chunk probes
+depend only on their own chunk, which is what lets XLA's scheduler
+overlap each sub-exchange with the previous chunk's probe (the
+successor of the reference's pipelined job queue,
+JobScheduler.cpp:103-122 in the reference).
 """
 
 import re
 
-import numpy as np
 import pytest
 
 pytestmark = pytest.mark.slow
@@ -48,49 +43,3 @@ def test_exchange_is_chunked(chunks):
     stable = low.as_text()
     # K left sub-exchanges + 1 right exchange, nothing fused away
     assert len(re.findall(r"all_to_all", stable)) == chunks + 1
-
-
-def test_tpu_schedule_overlaps_exchange_with_probe():
-    """AOT-compile for an 8-chip v5e topology and assert the scheduled
-    module interleaves collectives with compute. Skips when the TPU
-    compiler can't produce a detached topology (no libtpu)."""
-    import jax
-    from jax.sharding import Mesh
-
-    try:
-        from jax.experimental import topologies
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name="v5e:2x4")
-    except Exception as e:                     # no TPU compiler available
-        pytest.skip(f"TPU topology compile unavailable: {e}")
-    mesh = Mesh(np.array(topo.devices), ("x",))
-    low = _lowered(4, mesh)
-    txt = low.compile(
-        compiler_options={"xla_tpu_enable_async_all_to_all": "true"}
-    ).as_text()
-    assert "is_scheduled=true" in txt
-    entry = txt.split("ENTRY ")[1].splitlines()
-    spans = {}
-    compute_inside = {}
-    for i, line in enumerate(entry):
-        ms = re.search(r"%(all-to-all-start[.\w]*) =", line)
-        md = re.search(r"all-to-all-done\(%(all-to-all-start[.\w]*)\)",
-                       line)
-        if ms:
-            spans[ms.group(1)] = i
-            compute_inside[ms.group(1)] = 0
-            continue
-        if md and md.group(1) in spans:
-            spans[md.group(1)] = (spans[md.group(1)], i)
-            continue
-        if re.match(r"\s*%(fusion|sort)", line):
-            for k, v in spans.items():
-                if isinstance(v, int):         # still in flight
-                    compute_inside[k] += 1
-    closed = {k: v for k, v in spans.items() if isinstance(v, tuple)}
-    assert len(closed) >= 5                    # K+1 async exchanges
-    # every async exchange window has compute scheduled inside it —
-    # communication rides ICI while the chip probes/sorts
-    assert all(compute_inside[k] > 0 for k in closed), compute_inside
-    # and the big right-side exchange overlaps substantially
-    assert max(compute_inside.values()) >= 10

@@ -371,11 +371,10 @@ def test_narrow_uint16_planes_fold_exact(monkeypatch):
     assert len(pl) > 1 and all(p.dtype == np.uint16 for p, _s in pl)
 
 
-def test_huge_star_with_hier_window_scatter(monkeypatch):
+def test_huge_star_window_scatter_matches_oracle(monkeypatch):
     """The huge-node window loops route their per-window table builds
-    through scatter_add_window; forcing the hierarchical kernel
-    (ftree_scatter='hier' — what 'auto' picks on a measured TPU at wide
-    widths) must stay exact through the full engine."""
+    through scatter_add_window; a star over a ragged huge fact must stay
+    exact through the full engine."""
     import numpy as np
     from radixhashjoin_tpu.config import EngineConfig
     from radixhashjoin_tpu.models.engine import Engine
@@ -400,41 +399,28 @@ def test_huge_star_with_hier_window_scatter(monkeypatch):
     q = Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)],
               [FilterPred(1, 1, "<", 900)],
               [Projection(0, 2), Projection(1, 1), Projection(2, 1)])
-    engine = Engine(rels, EngineConfig(ftree_scatter="hier"))
+    engine = Engine(rels, EngineConfig())
     got = engine.run_workload([[q]])
     want = [format_result(OracleExecutor(rels).execute(q), 3)]
     assert got == want, (got, want)
     assert engine.batch_executor.counters["ftree_queries"] == 1
 
 
-def test_wsort_fused_pass_matches_oracle(monkeypatch):
-    """Sorted-window fused passes (ftree_window_sort="on"): every huge
-    window is sorted once by the pass's most-consumed key and the
-    primary key's gathers/scatters run the presorted hier kernels
-    (table_gather_hier / weighted_bincount_hier presorted=True) —
-    shrunken kernel thresholds force those paths at test size. Covers
-    single-join (one key: every leg presorted), 2-edge stars (the
-    secondary key's legs read permuted-but-engine), fact masks riding
-    the permutation as sort operands, dim projections (down-pass A
-    builds), ragged-tail live masks through the sort, NULL flags, and
-    a huge wiped boolean component."""
+def test_huge_fused_pass_matches_oracle(monkeypatch):
+    """Fused window passes over a huge node at shrunken thresholds:
+    single join, 2-edge stars (shared per-window gathers), fact masks,
+    dim projections (down-pass A builds), ragged-tail live masks, NULL
+    flags, and a huge wiped boolean component."""
     import numpy as np
     from radixhashjoin_tpu.config import EngineConfig
     from radixhashjoin_tpu.models.engine import Engine
     from radixhashjoin_tpu.oracle import OracleExecutor, format_result
-    from radixhashjoin_tpu.ops import factorized, tables
+    from radixhashjoin_tpu.ops import factorized
     from radixhashjoin_tpu.utils import limbs
     from radixhashjoin_tpu.workload import (FilterPred, JoinPred,
                                             Projection, Query)
     monkeypatch.setattr(factorized, "_BIG_WAVE_ROWS", 2048)
     monkeypatch.setattr(limbs, "_BIG_WINDOW_ROWS", 4 * limbs.WCHUNK)
-    # widths (300/200) clear this, so window scatters go hier_presorted
-    monkeypatch.setattr(tables, "MXU_SCATTER_MAX_BINS", 16)
-    # small hier blocks exercise multi-block windows AND spill rows
-    monkeypatch.setattr(tables, "HIER_BLOCK_ROWS", 256)
-    monkeypatch.setattr(tables, "HIER_SUB_WIDTH", 64)
-    monkeypatch.setattr(tables, "HIER_GATHER_BLOCK_ROWS", 256)
-    monkeypatch.setattr(tables, "HIER_GATHER_SUB_WIDTH", 64)
     rng = np.random.default_rng(97)
     n = 5 * 4096 + 77                    # ragged, several windows
     fact = Relation([rng.integers(0, 300, n).astype(np.uint64),
@@ -447,40 +433,36 @@ def test_wsort_fused_pass_matches_oracle(monkeypatch):
     rels = [fact, d1, d2]
     star = [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)]
     queries = [
-        # single join: every huge leg runs presorted
+        # single join
         Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
               [Projection(0, 2), Projection(1, 1)]),
         # star with dim + fact projections (down-pass A builds + folds
-        # + flag share the sorted windows)
+        # + flag share one window loop)
         Query([0, 1, 2], star, [FilterPred(1, 1, "<", 900)],
               [Projection(0, 2), Projection(1, 1), Projection(2, 1)]),
-        # fact filter -> mask factor rides the window sort
+        # fact filter -> mask factor of every window
         Query([0, 1, 2], star, [FilterPred(0, 2, "<", 700)],
               [Projection(0, 2), Projection(2, 1)]),
-        # NULL via the windowed-OR flag under permuted windows
+        # NULL via the windowed-OR flag
         Query([0, 1, 2], star, [FilterPred(1, 1, "=", 55555)],
               [Projection(0, 2)]),
-        # huge wiped boolean component (clamped lazy gathers, sorted)
+        # huge wiped boolean component (clamped lazy gathers)
         Query([0, 1, 2, 2], [JoinPred(0, 0, 1, 0), JoinPred(2, 0, 3, 0)],
               [], [Projection(2, 1)]),
     ]
     oracle = OracleExecutor(rels)
-    engine = Engine(rels, EngineConfig(ftree_window_sort="on"))
+    engine = Engine(rels, EngineConfig())
     got = engine.run_workload([queries])
     want = [format_result(oracle.execute(q), len(q.projections))
             for q in queries]
     assert got == want, (got, want)
-    # same workload with wsort OFF must agree too (policy equivalence)
-    engine2 = Engine(rels, EngineConfig(ftree_window_sort="off"))
-    assert engine2.run_workload([queries]) == want
 
 
 def test_huge_chain_two_deep_matches_oracle(monkeypatch):
     """A CHAIN of two huge nodes (fact1 JOIN fact2 JOIN dim): both
     middle levels run the HBM-bounded machinery — the up-pass B build
     over huge fact2 with a lazy gather weight, the down-pass A builds
-    over both huge nodes, and folds on both — at shrunken thresholds,
-    with and without sorted windows (VERDICT r4 #3 exactness cover)."""
+    over both huge nodes, and folds on both — at shrunken thresholds."""
     import numpy as np
     from radixhashjoin_tpu.config import EngineConfig
     from radixhashjoin_tpu.models.engine import Engine
@@ -515,18 +497,14 @@ def test_huge_chain_two_deep_matches_oracle(monkeypatch):
     oracle = OracleExecutor(rels)
     want = [format_result(oracle.execute(q), len(q.projections))
             for q in queries]
-    for ws in ("on", "off"):
-        engine = Engine(rels, EngineConfig(ftree_window_sort=ws))
-        got = engine.run_workload([queries])
-        assert got == want, (ws, got, want)
+    engine = Engine(rels, EngineConfig())
+    got = engine.run_workload([queries])
+    assert got == want, (got, want)
 
 
-def test_wsort_unpackable_payloads_match_oracle(monkeypatch):
-    """Sorted windows when bit-packing cannot WIN: a 16-bit key width
-    plus a 16-bit plane cannot share one int32 word (16+16 > 31), so
-    _plan_packing returns None and the PLAIN multi-operand sort path
-    runs (the packer must decline, not mis-pack). Exactness vs the
-    oracle with wsort on/off."""
+def test_huge_wide_key_matches_oracle(monkeypatch):
+    """A huge node joined on a 16-bit key domain (60000-wide message
+    tables) with a projected column past 2**15."""
     import numpy as np
     from radixhashjoin_tpu.config import EngineConfig
     from radixhashjoin_tpu.models.engine import Engine
@@ -550,21 +528,7 @@ def test_wsort_unpackable_payloads_match_oracle(monkeypatch):
     oracle = OracleExecutor(rels)
     want = [format_result(oracle.execute(q), len(q.projections))
             for q in queries]
-    # prove the packer declines (plain sorted path) while wsort engages
-    seen = []
-    orig = factorized._plan_packing
-
-    def spy(*a):
-        r = orig(*a)
-        seen.append(r)
-        return r
-    monkeypatch.setattr(factorized, "_plan_packing", spy)
-    for ws in ("on", "off"):
-        engine = Engine(rels, EngineConfig(ftree_window_sort=ws))
-        got = engine.run_workload([queries])
-        assert got == want, (ws, got, want)
-    # the fact pass's 16+16-bit layout must DECLINE packing (plain
-    # sorted path); the dim node's 10-bit fold plane still packs —
-    # both paths run in this one workload
-    assert any(r is None for r in seen), seen
-    assert any(r is not None for r in seen), seen
+    engine = Engine(rels, EngineConfig())
+    got = engine.run_workload([queries])
+    assert got == want, (got, want)
+    assert engine.batch_executor.counters["ftree_queries"] == 1

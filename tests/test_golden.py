@@ -44,8 +44,7 @@ def test_jax_sort_backend_golden_batch1(small_catalog, small_batches,
 
 def test_jax_stage_group_golden_batch1(small_catalog, small_batches,
                                        golden_lines):
-    # grouped fused rounds (stage_group > 1): slower on this transport but
-    # a supported config — must stay exact
+    # grouped fused rounds (stage_group > 1) must stay exact
     eng = Engine(small_catalog, EngineConfig(stage_group=4))
     got = eng.run_batch(small_batches[0])
     assert got == golden_lines[:len(small_batches[0])]

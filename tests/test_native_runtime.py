@@ -12,13 +12,10 @@ from radixhashjoin_tpu.workload import parse_work_stream
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="native toolchain unavailable")
 
-SMALL = "/root/reference/small"
-
-
-def test_native_loader_matches_python():
+def test_native_loader_matches_python(contest_dir):
     for i in (0, 5, 13):
-        py = load_relation(f"{SMALL}/r{i}")
-        nat = load_relation_native(f"{SMALL}/r{i}")
+        py = load_relation(f"{contest_dir}/r{i}")
+        nat = load_relation_native(f"{contest_dir}/r{i}")
         assert nat.num_tuples == py.num_tuples
         assert nat.num_columns == py.num_columns
         for c in range(py.num_columns):
@@ -29,8 +26,8 @@ def test_native_loader_matches_python():
                    (py.stats[c].min, py.stats[c].max, py.stats[c].distinct)
 
 
-def test_native_parser_matches_python():
-    with open(f"{SMALL}/small.work") as f:
+def test_native_parser_matches_python(contest_dir):
+    with open(f"{contest_dir}/contest.work") as f:
         text = f.read()
     py = parse_work_stream(text.splitlines(True))
     nat = parse_work_native(text)

@@ -115,180 +115,110 @@ def test_sum_masks_padding():
     assert sum_column_over_rows(col, rows, jnp.int32(3)) == 6
 
 
-# ---- message-table kernels (ops/tables.py) ----
+# ---- message tables (ops/tables.py) ----
 
-def test_weighted_bincount_variants_match_xla():
-    import jax.numpy as jnp
-    from radixhashjoin_tpu.ops.tables import (weighted_bincount_mxu,
-                                              weighted_bincount_onehot,
-                                              weighted_bincount_sorted,
-                                              weighted_bincount_xla)
+@pytest.mark.parametrize("n_bins", [7, 700, 1 << 16])
+def test_scatter_table_matches_numpy(n_bins):
+    """Weighted bincount: masked rows carry the n_bins sentinel and drop;
+    weights reach past 2**16, per-bin totals stay below 2**31 (the
+    planner's overflow caps, models/batch.py:_ftree_caps)."""
+    from radixhashjoin_tpu.ops.tables import scatter_add
     rng = np.random.default_rng(5)
-    n, n_bins = 5000, 700
-    # include out-of-range sentinels (the wave's masked rows) and
-    # weights past every int8-limb boundary (sign-wrap coverage)
-    idxs = jnp.asarray(np.where(rng.random(n) < 0.1, n_bins,
-                                rng.integers(0, n_bins, n)).astype(np.int32))
-    w = jnp.asarray(rng.integers(0, 2**20, n).astype(np.int32))
-    ref = np.asarray(weighted_bincount_xla(idxs, w, n_bins))
-    assert (np.asarray(weighted_bincount_sorted(idxs, w, n_bins))
-            == ref).all()
-    assert (np.asarray(weighted_bincount_mxu(idxs, w, n_bins))
-            == ref).all()
-    assert (np.asarray(weighted_bincount_onehot(idxs, w, n_bins,
-                                                interpret=True))
-            == ref).all()
+    n = 5000
+    idx = np.where(rng.random(n) < 0.1, n_bins,
+                   rng.integers(0, n_bins, n)).astype(np.int32)
+    w = rng.integers(0, 2**20, n).astype(np.int32)
+    live = idx < n_bins
+    want = np.bincount(idx[live], weights=w[live].astype(np.float64),
+                       minlength=n_bins).astype(np.int64)
+    got = np.asarray(scatter_add(jnp.zeros(n_bins, jnp.int32),
+                                 jnp.asarray(idx), jnp.asarray(w)))
+    assert (got == want).all()
 
 
-def test_weighted_bincount_hier_exact():
-    """Hierarchical wide-table build vs the XLA scatter engine across
-    its regimes: dense (spill-free fast path), sparse (every block
-    spills — the cond fallback), sentinel-heavy, negative keys, and a
-    ragged tail shorter than one block."""
-    import jax.numpy as jnp
-    from radixhashjoin_tpu.ops.tables import (weighted_bincount_hier,
-                                              weighted_bincount_xla)
-    rng = np.random.default_rng(7)
-    n_bins = 1 << 15
-    cases = {
-        # dense: 2**17 rows over 2**15 bins (mult 4) — blocks stay local
-        "dense": rng.integers(0, n_bins, 1 << 17),
-        # zipf-ish skew: heavy head, long tail
-        "skew": np.minimum((rng.random(1 << 17) + 1e-9) ** -2.0,
-                           n_bins - 1).astype(np.int64),
-        # sparse: 4096 rows over 32768 bins — blocks span >> sub_width
-        "sparse": rng.integers(0, n_bins, 1 << 12),
-        # ragged: not a multiple of block_rows, with sentinels + negatives
-        "ragged": np.where(rng.random(3001) < 0.2, -3,
-                           np.where(rng.random(3001) < 0.1, n_bins + 7,
-                                    rng.integers(0, n_bins, 3001))),
-    }
-    for name, idx_np in cases.items():
-        idxs = jnp.asarray(idx_np.astype(np.int32))
-        w = jnp.asarray(rng.integers(0, 2**20, idxs.shape[0])
-                        .astype(np.int32))
-        # the reference for the DOCUMENTED contract: every out-of-range
-        # index drops (raw jnp .at[] would wrap negatives NumPy-style;
-        # the MXU/onehot/hier kernels all drop them, and no caller ever
-        # produces one — wave sentinels are >= n_bins)
-        ref = np.asarray(weighted_bincount_xla(
-            jnp.where(idxs < 0, n_bins, idxs), w, n_bins))
-        got = np.asarray(weighted_bincount_hier(idxs, w, n_bins))
-        assert (got == ref).all(), name
-
-
-def test_weighted_bincount_sorted_exact_past_int32_total():
-    """The wrapped-cumsum trick: the GLOBAL total overflows int32 but
-    every per-bin sum stays < 2**31, so boundary diffs remain exact."""
-    import jax.numpy as jnp
-    from radixhashjoin_tpu.ops.tables import weighted_bincount_sorted
-    n_bins = 8
-    n = 1 << 16
-    idxs = jnp.asarray(np.arange(n, dtype=np.int32) % n_bins)
-    w = jnp.full(n, 1 << 16, jnp.int32)     # total = 2**32 (wraps), per
-    out = np.asarray(weighted_bincount_sorted(idxs, w, n_bins))
-    assert (out == (n // n_bins) * (1 << 16)).all()   # bin sum = 2**29
-
-
-def test_table_gather_onehot_exact_full_int32():
-    import jax.numpy as jnp
-    from radixhashjoin_tpu.ops.tables import table_gather_onehot
-    rng = np.random.default_rng(6)
-    table = jnp.asarray(rng.integers(0, 2**31 - 1, 512, dtype=np.int64)
-                        .astype(np.int32))
-    keys = jnp.asarray(rng.integers(0, 512, 4096).astype(np.int32))
-    got = np.asarray(table_gather_onehot(table, keys))
-    assert (got == np.asarray(table)[np.asarray(keys)]).all()
-
-
-def test_kernel_policy_gated_on_measured_device_kind(monkeypatch):
-    """The MXU/onehot auto thresholds were measured on a v5e; any OTHER
-    TPU kind (v4, v5p, v6e) must fall back to the XLA engines under
-    "auto" instead of silently inheriting v5e breakevens."""
-    from types import SimpleNamespace
-
-    import jax
-
-    from radixhashjoin_tpu.ops import tables
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for kind, want in [("TPU v4", False), ("TPU v5p", False),
-                       ("TPU v6 lite", False), ("TPU v5 lite", True),
-                       ("TPU v5e", True)]:
-        monkeypatch.setattr(
-            jax, "devices",
-            lambda kind=kind: [SimpleNamespace(device_kind=kind)])
-        assert tables._measured_tpu() is want, kind
-        assert tables._gather_auto(1024, 1 << 20) is want, kind
-    # CPU backend never engages the measured-kind paths
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert tables._measured_tpu() is False
-
-
-def test_scatter_add_window_impls_exact():
-    """scatter_add_window (the huge-build window-loop kernel router)
-    must accumulate bit-identically to acc.at[idx].add(mode='drop') for
-    every impl, including the masked-row sentinel (idx == n_bins) and a
-    nonzero running accumulator."""
-    import jax.numpy as jnp
-    import numpy as np
+def test_scatter_add_window_accumulates():
+    """One window of a huge build adds into a nonzero accumulator and
+    drops the masked-row sentinel (idx == n_bins)."""
     from radixhashjoin_tpu.ops.tables import scatter_add_window
     rng = np.random.default_rng(11)
     n, n_bins = 8192, 1 << 14
     idx = rng.integers(0, n_bins, n).astype(np.int32)
-    idx[::7] = n_bins                      # drop sentinel
+    idx[::7] = n_bins
     w = rng.integers(0, 1000, n).astype(np.int32)
-    acc0 = jnp.asarray(rng.integers(0, 50, n_bins).astype(np.int32))
-    want = np.asarray(scatter_add_window(acc0, jnp.asarray(idx),
-                                         jnp.asarray(w), "xla"))
-    for impl in ("mxu", "hier"):
-        got = np.asarray(scatter_add_window(acc0, jnp.asarray(idx),
-                                            jnp.asarray(w), impl))
-        assert (got == want).all(), impl
+    acc0 = rng.integers(0, 50, n_bins).astype(np.int32)
+    want = acc0.astype(np.int64).copy()
+    np.add.at(want, idx[idx < n_bins], w[idx < n_bins])
+    got = np.asarray(scatter_add_window(jnp.asarray(acc0), jnp.asarray(idx),
+                                        jnp.asarray(w)))
+    assert (got == want).all()
 
 
-def test_wide_gather_kernels_exact():
-    """table_gather_{diffcum,hier,pallas}: exact vs the engine on
-    sorted keys, including out-of-range sentinels (drop -> 0),
-    negatives, and sparse inputs that force hier/pallas spill
-    fallbacks (VERDICT r4 #1 kernels)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from radixhashjoin_tpu.ops.tables import (
-        table_gather_diffcum, table_gather_hier, table_gather_pallas)
-    rng = np.random.default_rng(5)
-    for n, bins in ((1 << 15, 1 << 12), (100001, 1 << 16),
-                    (50000, 1 << 20)):
-        table = rng.integers(-2**31, 2**31 - 1, bins).astype(np.int32)
-        keys = np.sort(rng.integers(0, bins, n).astype(np.int32))
-        keys[:3] = -2
-        keys[-4:] = bins
-        ok = (keys >= 0) & (keys < bins)
-        ref = np.where(ok, table[np.clip(keys, 0, bins - 1)], 0)
-        t, k = jnp.asarray(table), jnp.asarray(keys)
-        assert (np.asarray(table_gather_diffcum(t, k)) == ref).all()
-        assert (np.asarray(table_gather_hier(t, k)) == ref).all()
-        assert (np.asarray(
-            table_gather_pallas(t, k, interpret=True)) == ref).all()
+def _hot_keys(rng, n, n_bins, share):
+    """n keys in [0, n_bins) with key 3 forced on `share` of the rows,
+    and the masked-row sentinel (n_bins) on every 9th row."""
+    idx = rng.integers(0, n_bins, n).astype(np.int32)
+    idx[rng.random(n) < share] = 3
+    idx[::9] = n_bins
+    return idx
 
 
-def test_presorted_bincount_exact_even_when_promise_broken():
-    """weighted_bincount_hier(presorted=True) must stay exact when the
-    input violates the sortedness promise (masked-to-sentinel rows in
-    the middle anchor blocks above their neighbors): negative-local
-    rows spill to the engine scatter instead of silently dropping."""
-    import numpy as np
-    import jax.numpy as jnp
-    from radixhashjoin_tpu.ops.tables import (weighted_bincount_hier,
-                                              weighted_bincount_xla)
-    rng = np.random.default_rng(11)
-    n, bins = 1 << 14, 1 << 13
-    idx = np.sort(rng.integers(0, bins, n).astype(np.int32))
-    idx[rng.integers(0, n, 500)] = bins          # sentinels mid-stream
-    w = rng.integers(0, 100, n).astype(np.int32)
-    ref = np.asarray(weighted_bincount_xla(jnp.asarray(idx),
-                                           jnp.asarray(w), bins))
-    got = np.asarray(weighted_bincount_hier(jnp.asarray(idx),
-                                            jnp.asarray(w), bins,
-                                            presorted=True))
-    assert (got == ref).all()
+@pytest.mark.parametrize("share,hot", [(0.0, False), (0.05, False),
+                                       (0.25, True), (0.9, True)])
+def test_hot_key_rule(share, hot):
+    from radixhashjoin_tpu.ops.tables import hot_key
+    idx = _hot_keys(np.random.default_rng(12), 1 << 16, 1 << 10, share)
+    assert bool(hot_key(jnp.asarray(idx), 1 << 10)) == hot
+
+
+def test_hot_key_ignores_the_sentinel():
+    """A window of mostly masked rows (sentinel n_bins) is not hot."""
+    from radixhashjoin_tpu.ops.tables import hot_key
+    idx = np.full(1 << 14, 1 << 10, np.int32)
+    idx[::5] = np.arange(idx[::5].size) % (1 << 10)
+    assert not bool(hot_key(jnp.asarray(idx), 1 << 10))
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3])
+def test_scatter_add_window_either_branch_exact(share):
+    """Both branches of the window build (scatter-add, and the sorted
+    build a hot key selects) match numpy, accumulating into acc."""
+    from radixhashjoin_tpu.ops.tables import scatter_add_window
+    rng = np.random.default_rng(13)
+    n, n_bins = 1 << 15, 1 << 12
+    idx = _hot_keys(rng, n, n_bins, share)
+    w = rng.integers(0, 1 << 12, n).astype(np.int32)
+    acc0 = rng.integers(0, 50, n_bins).astype(np.int32)
+    want = acc0.astype(np.int64).copy()
+    np.add.at(want, idx[idx < n_bins], w[idx < n_bins])
+    got = np.asarray(scatter_add_window(jnp.asarray(acc0), jnp.asarray(idx),
+                                        jnp.asarray(w)))
+    assert (got == want).all()
+
+
+def test_weighted_bincount_sorted_exact_past_int32_total():
+    """The sorted build's int32 cumsum wraps once the weights' total
+    passes 2**31; every bin sum stays below it, so the wrapped
+    differences are still exact."""
+    from radixhashjoin_tpu.ops.tables import weighted_bincount_sorted
+    rng = np.random.default_rng(14)
+    n, n_bins = 4096, 256
+    idx = rng.integers(0, n_bins + 1, n).astype(np.int32)   # + sentinel
+    w = rng.integers(0, 1 << 22, n).astype(np.int32)
+    assert w.astype(np.int64).sum() > 2**31
+    live = idx < n_bins
+    want = np.bincount(idx[live], weights=w[live].astype(np.float64),
+                       minlength=n_bins).astype(np.int64)
+    assert want.max() < 2**31
+    got = np.asarray(weighted_bincount_sorted(jnp.asarray(idx),
+                                              jnp.asarray(w), n_bins))
+    assert (got == want).all()
+
+
+def test_table_gather_exact_full_int32():
+    from radixhashjoin_tpu.ops.tables import table_gather
+    rng = np.random.default_rng(6)
+    table = rng.integers(-2**31, 2**31 - 1, 512, dtype=np.int64).astype(
+        np.int32)
+    keys = rng.integers(0, 512, 4096).astype(np.int32)
+    got = np.asarray(table_gather(jnp.asarray(table), jnp.asarray(keys)))
+    assert (got == table[keys]).all()

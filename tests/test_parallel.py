@@ -1,7 +1,7 @@
 """Distributed radix-exchange join on the 8-virtual-device CPU mesh.
 
 The reference has zero distributed tests (it has zero distributed anything,
-SURVEY.md §5); this is the multi-chip coverage the TPU design requires.
+SURVEY.md §5); this is the multi-chip coverage the mesh design requires.
 """
 
 import collections
@@ -172,7 +172,7 @@ def test_case1_expand_capacity_tight_vs_slack(mesh):
     TIGHT capacity (exactly the bucketed max) and a 4x slack one must
     yield the same pair multiset — lanes past each chip's total are
     garbage by contract and must be masked by the per-shard counts
-    (VERDICT r4 #4 expand-capacity coverage)."""
+    (expand-capacity coverage)."""
     import collections
     from radixhashjoin_tpu.parallel.dist_ops import (d_case1_probe,
                                                      d_case1_expand,

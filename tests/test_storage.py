@@ -7,11 +7,15 @@ from radixhashjoin_tpu.storage import load_relation, write_relation, Relation
 
 
 def test_load_small_r0(small_catalog):
+    # r0 as written by the seed-0 generator: header and every column
+    # survive the binary format unchanged
+    from radixhashjoin_tpu.datagen import generate
+    want = generate(seed=0).columns[0]
     r0 = small_catalog[0]
-    # header of /root/reference/small/r0: 1561 tuples, 3 columns
-    assert r0.num_tuples == 1561
-    assert r0.num_columns == 3
-    assert all(len(c) == 1561 for c in r0.values)
+    assert r0.num_tuples == len(want[0])
+    assert r0.num_columns == len(want)
+    for got, col in zip(r0.values, want):
+        np.testing.assert_array_equal(np.asarray(got), col)
 
 
 def test_roundtrip(tmp_path):

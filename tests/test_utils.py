@@ -72,7 +72,7 @@ def test_split_merge_fold16_roundtrip_and_psum_width():
 
 def test_profiler_roofline_none_on_cpu():
     """On the CPU test backend the roofline column must be absent (no
-    hardcoded v5e constant), not silently wrong."""
+    hardcoded device constant), not silently wrong."""
     from radixhashjoin_tpu.utils.profiling import OpStats, hbm_bytes_per_s
     assert hbm_bytes_per_s() is None    # tests force the CPU platform
     s = OpStats(calls=1, seconds=1.0, bytes=10**9)
@@ -94,7 +94,7 @@ def test_seg_chunk_scales_with_rows():
 def test_weighted_segments_exact_at_large_chunks():
     """Regression for the 2**29-row silent carry: the old 13-bit fold
     wrapped a weight-1 carry past 2**18 chunks (observed as a sum short
-    by exactly 2**32 on a 537M-row TPU run). The 16-bit-piece fold with
+    by exactly 2**32 on a 537M-row run). The 16-bit-piece fold with
     seg_chunk-sized chunks must be exact at the adversarial envelope:
     16-bit values times 2**31-bound weights (low channels at their
     bounds) and big*big products (the self-healing 2**32-weight

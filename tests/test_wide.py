@@ -1,7 +1,7 @@
 """Full-u64 device path: the order-preserving dictionary encoding.
 
 The reference processes full-u64 columns natively (structs.h:11-22,
-structs.cpp:28-39); TPU lanes are 32-bit. These tests drive values up to
+structs.cpp:28-39); the device path's lanes are 32-bit. These tests drive values up to
 2**63 through the device executors (both backends, batched and per-query)
 and check exact agreement with the NumPy oracle — including u64 SUM
 wraparound and filter constants above the int32 range.
@@ -169,7 +169,7 @@ def test_wide_parallel_edges_matches_oracle(seed):
 def test_plane_column_alias_both_orders(monkeypatch):
     """The uint16 projection plane must never stay resident NEXT TO the
     int32 copy of the same huge identity column, whichever of
-    proj_planes()/col() runs first (the r4-ADVICE aliasing fix was
+    proj_planes()/col() runs first (an earlier aliasing fix was
     order-dependent: projection-then-join kept both, 6 B/row)."""
     import numpy as np
     from radixhashjoin_tpu.models import device_catalog as dc
